@@ -30,8 +30,15 @@ _SIGNATURES = {
         # n, salt, out, rows, n_out, stream
         "dint_zero": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
     },
+    "libdintserve.so": {
+        # blk, qw, dstore, wstore, dout, sout, G, NB, stream
+        "dint_block_copy": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                            ctypes.c_int64, _P],
+    },
 }
-_SOURCES = {"libdintgather.so": "decode_gather.cu"}
+_SOURCES = {"libdintgather.so": "decode_gather.cu",
+            "libdintserve.so": "serve_gather.cu"}
+LIBRARIES = tuple(_SOURCES)
 _libs = {}
 
 

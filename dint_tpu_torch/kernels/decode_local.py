@@ -17,9 +17,13 @@ a plain PyTorch twin beside it (``*_plain``).  The wrappers dispatch on
 the tensors' device: a CPU tensor goes to the twin, a CUDA tensor to the
 kernel (or the call raises); nothing falls back.
 
-The engine keeps the reference package's raw-output contract and its
-chained, salted timing protocol, so its outputs and its chain's final
-salt equal ``dint_tpu``'s bit for bit.  u32 data travels as int32 bit
+Two engines run the class kernels.  ``ImageDecodeEngine`` decodes a
+whole stream's packed image and keeps the reference package's
+raw-output contract and its chained, salted timing protocol, so its
+outputs and its chain's final salt equal ``dint_tpu``'s bit for bit.
+``LocalDecodeEngine`` decodes the per-unit ``LocalPlan`` of the index
+query path (one 256-int block a unit, never packed across units) and
+rebuilds docids with ``_docid_rebuild``.  u32 data travels as int32 bit
 patterns; wrap arithmetic on it is done in int64 and masked.
 """
 
@@ -376,7 +380,97 @@ def launch_counts() -> Dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# Engine
+# Per-unit plans (the index query path)
+# ---------------------------------------------------------------------------
+
+_LEN_SHIFT = 13
+_OFF_MASK = (1 << _LEN_SHIFT) - 1
+
+
+@dataclass
+class LocalPlan:
+    """Per-unit serving plan of the index query path: every unit (one
+    256-int block) is chopped into rows of at most W_TOKENS local tokens,
+    N_OUT outputs and TABLE_CLS content words, each row with its own
+    local dictionary.  Rows are never packed across units, so each row
+    has one docid base (``LocalDecodeEngine.decode_docids_all``)."""
+
+    tokens: np.ndarray  # (R, W_TOKENS) i32 local entry ids
+    meta: np.ndarray  # (R, W_TOKENS) i32 len<<13|off per local id
+    table: np.ndarray  # (R, TABLE_CLS) u32 local contents
+    out_n: np.ndarray  # (R,) i32 ints produced per row
+    unit_id: np.ndarray  # (R,) i64 unit of each row
+    out_pos: np.ndarray  # (R,) i64 output offset of the row in its unit
+
+    @property
+    def rows(self) -> int:
+        return int(self.tokens.shape[0])
+
+
+def plan_stream(arena, starts, byte_lens, ns, ctxs, b_bits, view) -> LocalPlan:
+    """Compile the units into a per-unit LocalPlan with the native
+    planner (native/dint_planner.cpp).  Raises with the build error when
+    the planner cannot be built."""
+    from ..utils import nativebuild
+    from . import planner_native
+
+    res = planner_native.plan_stream_native(
+        arena, starts, byte_lens, ns, ctxs, b_bits, view,
+        W_TOKENS, N_OUT, TABLE_CLS,
+    )
+    if res is None:
+        err = nativebuild.errors.get("libdintplan.so",
+                                     "native/dint_planner.cpp not found")
+        raise RuntimeError(
+            f"native planner unavailable ({err.strip()}); the pure-Python "
+            "planner walk is not ported: ROADMAP.md 'Modules still to port' "
+            "item 5"
+        )
+    return LocalPlan(*res)
+
+
+def plan_to_vidx(plan: LocalPlan) -> np.ndarray:
+    """Per-output-position table indices, hosted once at load:
+    vidx[r, j] = off(tok_j) + j - start(tok_j), so the device decode is
+    a pure table gather."""
+    if plan.rows == 0:
+        return np.zeros((0, N_OUT), np.int32)
+    meta_pos = np.take_along_axis(plan.meta, plan.tokens, axis=1).astype(
+        np.int64
+    )
+    lens = meta_pos >> _LEN_SHIFT
+    offs = meta_pos & _OFF_MASK
+    ends = np.cumsum(lens, axis=1)
+    starts = ends - lens
+    R = lens.shape[0]
+    n = plan.out_n.astype(np.int64)
+    flat_lens = lens.ravel()
+    rep_off = np.repeat(offs.ravel(), flat_lens)
+    rep_start = np.repeat(starts.ravel(), flat_lens)
+    total = int(n.sum())
+    row_base = np.concatenate([[0], np.cumsum(n)[:-1]])
+    j_flat = np.arange(total, dtype=np.int64) - np.repeat(row_base, n)
+    vidx = np.zeros((R, N_OUT), np.int32)
+    rows_flat = np.repeat(np.arange(R, dtype=np.int64), n)
+    vidx[rows_flat, j_flat] = rep_off + j_flat - rep_start
+    return vidx
+
+
+def _docid_rebuild(gaps: torch.Tensor, base: torch.Tensor,
+                   n: torch.Tensor) -> torch.Tensor:
+    """Per-row docid rebuild: docid[j] = base + cumsum(gap+1) - 1 for
+    j < n, 0 elsewhere, in wrapping u32 (dict_posting_list.hpp:284-309,
+    batched: each block's base comes from block_maxs).  gaps (R, N) int32
+    holding u32 bits, base (R,) int64 holding u32 values, n (R,) int32;
+    returns (R, N) int32 holding the u32 docids.  Torch ops on the
+    tensors' device."""
+    c = torch.cumsum((gaps.to(torch.int64) & _MASK) + 1, dim=1)
+    doc = (base[:, None] + c - 1) & _MASK
+    return _to_i32(torch.where(_valid(n, gaps.shape[1]), doc, 0))
+
+
+# ---------------------------------------------------------------------------
+# Engines
 # ---------------------------------------------------------------------------
 
 
@@ -391,22 +485,19 @@ class _Class:
     n: torch.Tensor = None  # (rows,) int32
 
 
-class ImageDecodeEngine:
-    """Device runner over a DecodeImage: uploads the class arrays
-    (each class padded to the row tile, class-major engine rows: zero,
-    u16, i32) and runs the class kernels with the reference package's
-    chained, salted protocol."""
+def _default_row_tile(rows: int) -> int:
+    return min(GATHER_ROW_TILE, max(1 << int(np.ceil(np.log2(max(rows, 1)))), 32))
 
-    def __init__(self, img: DecodeImage, row_tile: int | None = None,
-                 device="cuda"):
-        self.device = resolve_device(device)
-        self.image = img
-        R_max = max(img.n0.shape[0], img.n16.shape[0], img.n32.shape[0], 1)
-        if row_tile is None:
-            row_tile = min(
-                GATHER_ROW_TILE, max(1 << int(np.ceil(np.log2(R_max))), 32)
-            )
-        self.row_tile = row_tile
+
+class _ClassEngine:
+    """Uploads the width classes (class-major engine rows: zero, u16,
+    i32, each padded to the row tile) and runs the class kernels over
+    them: K1-K3 on a CUDA device, their plain twins on the CPU."""
+
+    def _upload(self, parts, row_tile: int) -> None:
+        """``parts``: (mode, vidx (Rc, N_OUT) u8, tab (Rc, words) u32,
+        n (Rc,) i32) per class in engine order; vidx and tab are None
+        for the zero class."""
 
         def pad_rows(a, rows):
             if a.shape[0] != rows:
@@ -417,13 +508,10 @@ class ImageDecodeEngine:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+        self.row_tile = row_tile
         self._classes: List[_Class] = []
         base = 0
-        for mode, vidx, tab, nn in (
-            (0, None, None, img.n0),
-            (16, img.vidx16, img.tab16, img.n16),
-            (32, img.vidx32, img.tab32, img.n32),
-        ):
+        for mode, vidx, tab, nn in parts:
             Rc = nn.shape[0]
             padded = -(-Rc // row_tile) * row_tile if Rc else 0
             c = _Class(mode, base, padded, int(nn.astype(np.int64).sum()))
@@ -437,10 +525,6 @@ class ImageDecodeEngine:
             base += padded
         self.rows = base
         self._cls_bases = {c.mode: c.base for c in self._classes}
-        self.plan_bytes = img.device_bytes()
-
-    def total_ints(self) -> int:
-        return self.image.total_ints()
 
     def _run(self, salt: torch.Tensor) -> torch.Tensor:
         """Raw outputs of every class for one run, written into one
@@ -476,11 +560,32 @@ class ImageDecodeEngine:
                     o.copy_(_to_i32(torch.where(_valid(c.n, N_OUT), u, 0)))
         return buf
 
-    def decode_all(self) -> torch.Tensor:
+    def decode_all(self, salt: int = 0) -> torch.Tensor:
         """(engine rows, N_OUT) int32 holding the u32 outputs, in engine
         row order (class-major: zero, u16, i32, each padded to the row
         tile)."""
-        return self.decode(0)
+        return self.decode(salt)
+
+
+class ImageDecodeEngine(_ClassEngine):
+    """Device runner over a DecodeImage: uploads the class arrays and
+    runs the class kernels with the reference package's chained, salted
+    protocol."""
+
+    def __init__(self, img: DecodeImage, row_tile: int | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.image = img
+        R_max = max(img.n0.shape[0], img.n16.shape[0], img.n32.shape[0], 1)
+        self._upload(
+            [(0, None, None, img.n0), (16, img.vidx16, img.tab16, img.n16),
+             (32, img.vidx32, img.tab32, img.n32)],
+            row_tile or _default_row_tile(R_max),
+        )
+        self.plan_bytes = img.device_bytes()
+
+    def total_ints(self) -> int:
+        return self.image.total_ints()
 
     def decode_chain(self, runs: int) -> torch.Tensor:
         """Run ``runs`` salted decodes back to back, each run's salt the
@@ -525,3 +630,111 @@ class ImageDecodeEngine:
             ln = int(img.seg_len[s])
             res[u][p : p + ln] = host[int(er[s]), o : o + ln]
         return res
+
+
+class LocalDecodeEngine(_ClassEngine):
+    """Device runner over a per-unit LocalPlan (the index query path).
+
+    The plan's rows are split into the three table width classes (zero,
+    packed u16, i32), each padded to the row tile, exactly as the
+    reference package's split path lays them out
+    (``dint_tpu/kernels/decode_local.py:1247-1340``); the class kernels
+    decode them.  ``decode_docids_all`` adds the docid rebuild."""
+
+    def __init__(self, plan: LocalPlan, row_tile: int | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.plan = plan
+        R = plan.rows
+        vidx = plan_to_vidx(plan)
+        assert int(vidx.max(initial=0)) < TABLE_CLS <= 256
+        vidx = vidx.astype(np.uint8)
+        tabmax = plan.table.max(axis=1) if R else np.zeros(0, np.uint32)
+        # all-zero tables decode to zeros whatever the tokens say: those
+        # rows form the write-only zero class
+        sel = {0: tabmax == 0, 16: (tabmax < (1 << 16)) & (tabmax != 0),
+               32: tabmax >= (1 << 16)}
+        rows_of = {m: np.flatnonzero(s) for m, s in sel.items()}
+        parts = []
+        for mode in (0, 16, 32):
+            rows = rows_of[mode]
+            tab = plan.table[rows]
+            if mode == 16:
+                tab = (tab[:, 0::2] | (tab[:, 1::2] << np.uint32(16))).astype(
+                    np.uint32)
+            parts.append((mode, vidx[rows] if mode else None,
+                          tab if mode else None, plan.out_n[rows]))
+        self._upload(parts, row_tile or _default_row_tile(R))
+        # engine row <-> plan row maps (padding rows: unit -1, n 0)
+        self.eng_unit_id = np.full(self.rows, -1, np.int64)
+        self.eng_out_pos = np.zeros(self.rows, np.int64)
+        self.eng_out_n = np.zeros(self.rows, np.int32)
+        self._eng_of_plan = np.zeros(R, np.int64)
+        for c in self._classes:
+            rows = rows_of[c.mode]
+            er = c.base + np.arange(rows.shape[0], dtype=np.int64)
+            self._eng_of_plan[rows] = er
+            self.eng_unit_id[er] = plan.unit_id[rows]
+            self.eng_out_pos[er] = plan.out_pos[rows]
+            self.eng_out_n[er] = plan.out_n[rows]
+        self._row_carry = None
+
+    def row_carry(self) -> np.ndarray:
+        """(rows,) u32: sum of (gap+1) over all PRIOR rows of the same
+        unit — the docid offset each row starts at within its unit.
+        Pure plan state, hosted once like vidx (host numpy)."""
+        if self._row_carry is None:
+            plan = self.plan
+            vals = np.take_along_axis(
+                plan.table, plan_to_vidx(plan), axis=1
+            ).astype(np.uint64)
+            jpos = np.arange(vals.shape[1])[None, :]
+            valid = jpos < plan.out_n[:, None]
+            s = (vals * valid).sum(axis=1).astype(np.uint64) + plan.out_n
+            carry = np.zeros(plan.rows, np.uint32)
+            if plan.rows:
+                csum = np.cumsum(s)
+                same = plan.unit_id[1:] == plan.unit_id[:-1]
+                first = np.concatenate([[0], np.where(same, 0, 1)]).astype(bool)
+                # exclusive prefix within unit: csum[r-1] - csum[last row
+                # of previous unit]
+                unit_start_csum = np.where(
+                    first, np.concatenate([[0], csum[:-1]]), 0
+                )
+                unit_base = np.maximum.accumulate(unit_start_csum)
+                carry = (
+                    np.concatenate([[0], csum[:-1]]) - unit_base
+                ).astype(np.uint32)
+            self._row_carry = carry
+        return self._row_carry
+
+    def decode_docids_all(self, unit_bases: np.ndarray,
+                          salt: int = 0) -> torch.Tensor:
+        """Decode AND rebuild docids: the class kernels, then the per-row
+        prefix sum (_docid_rebuild) with hosted carries (rows of one unit
+        chain through row_carry; unit_bases come from block_maxs).
+        Returns (engine rows, N_OUT) int32 holding u32 docids."""
+        nb = (np.asarray(unit_bases, np.uint32)[self.plan.unit_id]
+              .astype(np.int64) + self.row_carry()) & _MASK
+        bases = np.zeros(self.rows, np.int64)
+        bases[self._eng_of_plan] = nb
+        gaps = self.decode(salt)
+        return _docid_rebuild(
+            gaps, torch.from_numpy(bases).to(self.device),
+            torch.from_numpy(self.eng_out_n).to(self.device),
+        )
+
+    def gather_units(self, outs, num_units: int, unit_ns) -> List[np.ndarray]:
+        """Per-unit u32 arrays from a decode_all / decode_docids_all
+        output (one vectorized scatter over every row)."""
+        host = outs.cpu().numpy().view(np.uint32).reshape(-1, N_OUT)
+        unit_ns = np.asarray(unit_ns, np.int64)
+        unit_off = np.cumsum(unit_ns) - unit_ns
+        rows = np.flatnonzero(self.eng_unit_id >= 0)
+        k = self.eng_out_n[rows].astype(np.int64)
+        dst0 = unit_off[self.eng_unit_id[rows]] + self.eng_out_pos[rows]
+        first = np.cumsum(k) - k
+        j = np.arange(int(k.sum()), dtype=np.int64) - np.repeat(first, k)
+        flat = np.zeros(int(unit_ns.sum()), np.uint32)
+        flat[np.repeat(dst0, k) + j] = host[np.repeat(rows, k), j]
+        return np.split(flat, unit_off[1:])[:num_units]

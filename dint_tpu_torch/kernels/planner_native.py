@@ -1,9 +1,11 @@
 """ctypes binding for the native serving-image planner.
 
 native/dint_planner.cpp builds the serving image (chop + FFD pack +
-direct vidx + width-class split, its plan2 pass).  This module builds it
-on first use into the port's build directory and exposes
-plan_shard_image; it returns None if the toolchain is unavailable.
+direct vidx + width-class split, its plan2 pass) and the per-unit
+LocalPlan of the index query path (its first pass).  This module builds
+it on first use into the port's build directory and exposes
+plan_shard_image and plan_stream_native; both return None if the
+toolchain is unavailable.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ def get_lib():
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32,
     ]
+    lib.dint_planner_create.restype = ctypes.c_void_p
+    lib.dint_planner_create.argtypes = create_args
+    lib.dint_planner_destroy.argtypes = [ctypes.c_void_p]
+    lib.dint_plan_units.restype = ctypes.c_int64
+    lib.dint_plan_units.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int64
+    ]
+    lib.dint_plan_export.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 6
     lib.dint_planner2_create.restype = ctypes.c_void_p
     lib.dint_planner2_create.argtypes = create_args
     lib.dint_planner2_destroy.argtypes = [ctypes.c_void_p]
@@ -45,6 +55,67 @@ def get_lib():
     lib.dint_plan2_export.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 13
     _lib = lib
     return _lib
+
+
+def _view_arrays(view):
+    table = np.ascontiguousarray(view.table, dtype=np.uint32)
+    offsets = np.ascontiguousarray(view.offsets, dtype=np.uint32)
+    lengths = np.ascontiguousarray(view.lengths, dtype=np.int32)
+    return table, offsets, lengths
+
+
+def plan_stream_native(
+    arena: np.ndarray,
+    starts,
+    byte_lens,
+    ns,
+    ctxs,
+    b_bits,
+    view,
+    w_tokens: int,
+    n_out: int,
+    table_cls: int,
+):
+    """The native per-unit plan (chop + local dictionaries, one or more
+    rows per unit, no packing): the six LocalPlan arrays (tokens, meta,
+    table, out_n, unit_id, out_pos), or None if the toolchain is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    table, offsets, lengths = _view_arrays(view)
+    C, E = offsets.shape
+    arena = np.ascontiguousarray(arena, dtype=np.uint8)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    byte_lens = np.ascontiguousarray(byte_lens, dtype=np.int64)
+    ns = np.ascontiguousarray(ns, dtype=np.int32)
+    ctxs = np.ascontiguousarray(ctxs, dtype=np.int32)
+    b_bits = np.ascontiguousarray(b_bits, dtype=np.int32)
+    U = starts.shape[0]
+    h = lib.dint_planner_create(
+        table.ctypes.data, table.shape[0], offsets.ctypes.data,
+        lengths.ctypes.data, C, E, w_tokens, n_out, table_cls,
+    )
+    try:
+        rows = lib.dint_plan_units(
+            h, arena.ctypes.data, starts.ctypes.data, byte_lens.ctypes.data,
+            ns.ctypes.data, ctxs.ctypes.data, b_bits.ctypes.data, U,
+        )
+        if rows < 0:
+            raise ValueError(f"malformed unit {-1 - rows} in stream")
+        tokens = np.empty((rows, w_tokens), np.int32)
+        meta = np.empty((rows, w_tokens), np.int32)
+        tab = np.empty((rows, table_cls), np.uint32)
+        out_n = np.empty(rows, np.int32)
+        unit_id = np.empty(rows, np.int64)
+        out_pos = np.empty(rows, np.int64)
+        lib.dint_plan_export(
+            h, tokens.ctypes.data, meta.ctypes.data, tab.ctypes.data,
+            out_n.ctypes.data, unit_id.ctypes.data, out_pos.ctypes.data,
+        )
+        return tokens, meta, tab, out_n, unit_id, out_pos
+    finally:
+        lib.dint_planner_destroy(h)
 
 
 def plan_shard_image(
@@ -69,9 +140,7 @@ def plan_shard_image(
     lib = get_lib()
     if lib is None:
         return None
-    table = np.ascontiguousarray(view.table, dtype=np.uint32)
-    offsets = np.ascontiguousarray(view.offsets, dtype=np.uint32)
-    lengths = np.ascontiguousarray(view.lengths, dtype=np.int32)
+    table, offsets, lengths = _view_arrays(view)
     C, E = offsets.shape
     arena = np.ascontiguousarray(arena, dtype=np.uint8)
     starts = np.ascontiguousarray(starts, dtype=np.int64)

@@ -38,9 +38,9 @@ from ..kernels import decode_local
 from . import common
 
 _NOT_PORTED = {
-    "raw": "ROADMAP.md 'Modules still to port' item 5 (the raw chain-scan "
+    "raw": "ROADMAP.md 'Modules still to port' item 3 (the raw chain-scan "
            "engine, kernels/decode_xla.py + kernels/pipeline.py)",
-    "ladder": "ROADMAP.md 'Modules still to port' item 1 (the ladder leg, "
+    "ladder": "ROADMAP.md 'Modules still to port' item 4 (the ladder leg, "
               "UnpackEngine in kernels/unpack_device.py)",
 }
 

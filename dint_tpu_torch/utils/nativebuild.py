@@ -28,6 +28,8 @@ from typing import Optional, Sequence
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_ROOT = os.path.dirname(_PKG_ROOT)
 NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+# {shared object name: the message of its last failed build}
+errors = {}
 
 
 def build_dir() -> str:
@@ -67,7 +69,9 @@ def locked(path: str):
 def compile_atomic(cmd: Sequence[str], srcs: Sequence[str], out: str) -> bool:
     """Run ``cmd + [-o tmp]``, rename tmp to ``out`` and record the
     sources' hash; return False (with the compiler's stderr printed) on
-    failure.  The caller holds ``locked(out + '.lock')``."""
+    failure, kept in ``errors``).  The caller holds
+    ``locked(out + '.lock')``."""
+    name = os.path.basename(out)
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=os.path.dirname(out))
     os.close(fd)
     try:
@@ -77,18 +81,14 @@ def compile_atomic(cmd: Sequence[str], srcs: Sequence[str], out: str) -> bool:
             f.write(src_hash(srcs))
         return True
     except subprocess.CalledProcessError as e:
-        print(
-            f"build of {os.path.basename(out)} failed:\n"
-            f"{e.stderr.decode(errors='replace')}",
-            file=sys.stderr,
-        )
-        return False
+        errors[name] = e.stderr.decode(errors="replace")
     except FileNotFoundError as e:
-        print(f"build of {os.path.basename(out)} failed: {e}", file=sys.stderr)
-        return False
+        errors[name] = str(e)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    print(f"build of {name} failed:\n{errors[name]}", file=sys.stderr)
+    return False
 
 
 def ensure_so(

@@ -1,0 +1,427 @@
+"""The port's fused serving store, K4's plain version and the
+sort-merge engine against the reference.
+
+K4's plain version must equal the reference's portable block copy
+(``_gather_fn(NB, G, False)``) bit for bit, pad rows included; the
+device_batch functions equal ``_kernels()`` (counts exactly, scores bit
+for bit: the port repeats the reference's stable sort, scan and shifted
+adds in the same order); the store's layout, batch metadata and ranked
+top-k scores equal the reference store's, and lie within the
+reference's own tolerance (rtol 2e-4, atol 1e-5,
+tests/test_device_serve.py:87) of the host oracle ``ranked_or``.
+Docids are compared wherever the score is not tied within the row's
+top k + 1.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dint_tpu.index import dint_index as j_di
+from dint_tpu.query import device_batch as j_db
+from dint_tpu.query import device_serve as j_ds
+from dint_tpu.query import ranked as j_ranked
+from dint_tpu.query.term_decode import TermDecoder as JTermDecoder
+from dint_tpu_torch.index import dint_index as t_di
+from dint_tpu_torch.query import device_batch as t_db
+from dint_tpu_torch.query import device_serve as t_ds
+from dint_tpu_torch.query import ranked as t_ranked
+from dint_tpu_torch.query.term_decode import TermDecoder
+from dint_tpu_torch.tools import queries as t_queries
+from tests.test_torch_index import write_serve_collection
+
+K = 10
+PAD = int(t_ds.PAD_DOC)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---------------------------------------------------------------------------
+# K4's plain version
+# ---------------------------------------------------------------------------
+
+
+def k4_inputs(NB, G, seed):
+    """A store with a PAD last row and a batch with pad-row ids and qw of
+    0, negative and large values."""
+    rng = np.random.default_rng(seed)
+    dstore = rng.integers(0, 1 << 31, (NB, 256)).astype(np.int32)
+    dstore[-1] = PAD
+    wstore = rng.random((NB, 256)).astype(np.float32)
+    wstore[-1] = 0.0
+    blk = rng.integers(0, NB, G).astype(np.int32)
+    blk[::3] = NB - 1
+    qw = (rng.standard_normal(G) * 7).astype(np.float32)
+    qw[::4] = 0.0
+    qw[1::5] = -np.abs(qw[1::5])
+    return dstore, wstore, blk, qw
+
+
+@pytest.mark.parametrize("G", [1, 7, 64, 257])
+def test_k4_plain_matches_reference_portable_gather(G):
+    NB = 37
+    dstore, wstore, blk, qw = k4_inputs(NB, G, G)
+    jd, js = j_ds._gather_fn(NB, G, False)(
+        jnp.asarray(blk), jnp.asarray(qw),
+        jnp.asarray(dstore.reshape(NB, 1, 256)),
+        jnp.asarray(wstore.reshape(NB, 1, 256)))
+    td, ts = t_ds.block_copy(_t(blk), _t(qw), _t(dstore), _t(wstore))
+    assert td.dtype == torch.int32 and ts.dtype == torch.float32
+    assert td.shape == ts.shape == (G, 256)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd).reshape(G, 256))
+    # bit for bit, -0.0 and all
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).reshape(G, 256).view(np.int32))
+    assert (td.numpy()[blk == NB - 1] == PAD).all()
+
+
+def test_k4_plain_keeps_subnormal_products():
+    """The plain version (like the CUDA kernel, whose result chip_smoke.py
+    holds to it on the card) keeps IEEE subnormal products.  XLA's CPU
+    backend flushes them to zero, so on those lanes the reference gives
+    0 and the port the exact numpy product; elsewhere they agree bit for
+    bit."""
+    NB, G = 9, 16
+    dstore, wstore, blk, qw = k4_inputs(NB, G, 3)
+    qw[2::3] = np.float32(1e-40)
+    _, js = j_ds._gather_fn(NB, G, False)(
+        jnp.asarray(blk), jnp.asarray(qw),
+        jnp.asarray(dstore.reshape(NB, 1, 256)),
+        jnp.asarray(wstore.reshape(NB, 1, 256)))
+    js = np.asarray(js).reshape(G, 256)
+    _, ts = t_ds.block_copy(_t(blk), _t(qw), _t(dstore), _t(wstore))
+    want = wstore[blk] * qw[:, None]
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  want.view(np.int32))
+    sub = (want != 0) & (np.abs(want) < np.finfo(np.float32).tiny)
+    assert sub.any()
+    assert (js[sub] == 0).all()
+    np.testing.assert_array_equal(js[~sub].view(np.int32),
+                                  want[~sub].view(np.int32))
+
+
+def test_k4_out_of_range_ids_read_the_pad_row():
+    """Any block id outside [0, NB) names the PAD row NB-1, on the CPU
+    as in the kernel (chip_smoke.py's edge batches hold the two equal on
+    the card)."""
+    NB, G = 11, 12
+    dstore, wstore, blk, qw = k4_inputs(NB, G, 4)
+    bad = np.array([-1, NB, NB + 5, 2**31 - 1, -2**31], np.int32)
+    blk[1:1 + bad.shape[0]] = bad
+    td, ts = t_ds.block_copy(_t(blk), _t(qw), _t(dstore), _t(wstore))
+    ids = np.where((blk >= 0) & (blk < NB), blk, NB - 1)
+    np.testing.assert_array_equal(td.numpy(), dstore[ids])
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  (wstore[ids] * qw[:, None]).view(np.int32))
+    assert (td.numpy()[1:1 + bad.shape[0]] == PAD).all()
+
+
+def test_k4_wrapper_checks_its_inputs():
+    dstore, wstore, blk, qw = k4_inputs(5, 8, 1)
+    d, w, b, q = _t(dstore), _t(wstore), _t(blk), _t(qw)
+    for bad in ((b.long(), q, d, w), (b, q.double(), d, w), (b, q[:3], d, w),
+                (b, q, d[:, :128], w), (b, q, d, w[:4]),
+                (b[None], q, d, w)):
+        with pytest.raises(ValueError):
+            t_ds.block_copy(*bad)
+    t_ds.reset_launch_counts()
+    t_ds.block_copy(b, q, d, w)
+    # the CPU path is the plain version: no kernel launch is counted
+    assert t_ds.launch_counts() == {"K4_block_copy": 0}
+    e = t_ds.block_copy(b[:0], q[:0], d, w)
+    assert e[0].shape == (0, 256)
+
+
+# ---------------------------------------------------------------------------
+# The sort-merge engine
+# ---------------------------------------------------------------------------
+
+
+def ranked_rows(seed, Q=6, P=512, terms=4):
+    """(d, s): per query the concatenated postings of up to ``terms``
+    lists (a docid at most once per list), PAD-padded."""
+    rng = np.random.default_rng(seed)
+    d = np.full((Q, P), PAD, np.int32)
+    s = np.zeros((Q, P), np.float32)
+    for q in range(Q):
+        parts = [np.sort(rng.choice(300, int(rng.integers(0, 90)),
+                                    replace=False))
+                 for _ in range(int(rng.integers(1, terms + 1)))]
+        row = np.concatenate(parts).astype(np.int32)
+        d[q, :row.shape[0]] = row
+        s[q, :row.shape[0]] = rng.random(row.shape[0]).astype(np.float32) * 9
+    return d, s
+
+
+def assert_topk_equal(top_t, doc_t, top_j, doc_j, cand_scores=None):
+    """Scores bit for bit; docids wherever the score is untied within
+    the row's top k + 1 (``cand_scores`` holds each row's k+1 best)."""
+    np.testing.assert_array_equal(top_t.view(np.int32), top_j.view(np.int32))
+    for r in range(top_t.shape[0]):
+        ref = cand_scores[r] if cand_scores is not None else top_j[r]
+        for j in range(top_t.shape[1]):
+            if np.isfinite(top_t[r, j]) and (ref == top_t[r, j]).sum() == 1:
+                assert doc_t[r, j] == doc_j[r, j], (r, j)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ranked_union_topk_matches_reference(seed):
+    d, s = ranked_rows(seed)
+    j_rut, _, _ = j_db._kernels()
+    jt, jd = (np.asarray(x) for x in j_rut(jnp.asarray(d), jnp.asarray(s),
+                                            k=K + 1))
+    tt, td = t_db.ranked_union_topk(_t(d), _t(s), K)
+    assert_topk_equal(tt.numpy(), td.numpy(), jt[:, :K], jd[:, :K], jt)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_boolean_counts_and_members_match_reference(seed):
+    d, _ = ranked_rows(seed, terms=5)
+    nterms = np.asarray([2, 1, 3, 4, 5, 2], np.int32)
+    _, j_bc, j_am = j_db._kernels()
+    ja, jo = j_bc(jnp.asarray(d), jnp.asarray(nterms))
+    ta, to = t_db.boolean_counts(_t(d), _t(nterms))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    jds, jm = j_am(jnp.asarray(d), jnp.asarray(nterms))
+    tds, tm = t_db.and_members(_t(d), _t(nterms))
+    np.testing.assert_array_equal(tds.numpy(), np.asarray(jds))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+
+
+def test_host_assembly_matches_reference():
+    lengths = [0, 5, 31, 32, 33, 127, 513, 4097, 70000]
+    assert t_db.bucket_queries(lengths) == j_db.bucket_queries(lengths)
+    rows = [np.arange(n, dtype=np.int32) for n in (0, 3, 40)]
+    np.testing.assert_array_equal(t_db.pad_batch(rows, t_db.PAD_DOC, np.int32),
+                                  j_db.pad_batch(rows, j_db.PAD_DOC, np.int32))
+    with pytest.raises(ValueError, match="2\\^31-1"):
+        t_db._check_docid_range({3: np.asarray([1, 2**31 - 1], np.uint32)})
+
+
+def test_topk_rows_hierarchical_at_2_19_lanes():
+    rng = np.random.default_rng(2)
+    P = 1 << 19
+    cand = rng.standard_normal((2, P)).astype(np.float32)
+    cand[0, ::7] = -np.inf
+    d = rng.integers(0, 1 << 30, size=(2, P)).astype(np.int32)
+    top, docs = t_ds._topk_rows(_t(cand), _t(d), K)
+    want = np.sort(cand, axis=1)[:, ::-1][:, :K]
+    np.testing.assert_array_equal(top.numpy(), want)
+    jt, jd = j_ds._topk_rows(jnp.asarray(cand), jnp.asarray(d), K)
+    np.testing.assert_array_equal(top.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(docs.numpy(), np.asarray(jd))
+    for r in range(2):
+        np.testing.assert_array_equal(
+            docs.numpy()[r], d[r][np.argsort(-cand[r], kind="stable")][:K])
+
+
+@pytest.mark.parametrize("tmax", [1, 2, 3, 5])
+def test_bucket_topk_matches_reference(tmax):
+    d, s = ranked_rows(tmax, terms=tmax)
+    if tmax == 1:  # single-term rows hold unique docids
+        for r in range(d.shape[0]):
+            u = np.unique(d[r][d[r] != PAD])
+            d[r] = PAD
+            d[r, :u.shape[0]] = u
+    P = d.shape[1]
+    jt, jd = (np.asarray(x) for x in j_ds._bucket_topk(
+        jnp.asarray(d), jnp.asarray(s), P, K + 1, tmax, jnp.int32(0)))
+    tt, td = t_ds._bucket_topk(_t(d), _t(s), P, K, tmax)
+    assert_topk_equal(tt.numpy(), td.numpy(), jt[:, :K], jd[:, :K], jt)
+    rt, _ = t_ds._bucket_topk(_t(d), _t(s), P, K, tmax, shift=77)
+    np.testing.assert_array_equal(rt.numpy(), tt.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The store on the serving fixture
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["uniform", "skew"])
+def built(request, tmp_path_factory):
+    """(port index, reference index, wand data, queries, root) for the
+    fixture collection, ``single`` kind."""
+    shape = request.param
+    root = str(tmp_path_factory.mktemp(f"tds_{shape}"))
+    base = os.path.join(root, "c")
+    write_serve_collection(base, shape)
+    ti = t_di.build_index(base, kind="single", cache_dir=root + "/t")
+    ji = j_di.build_index(base, kind="single", cache_dir=root + "/j")
+    wd = t_ranked.build_wand_data(base)
+    rng = np.random.default_rng(3)
+    queries = [
+        [int(t) for t in rng.integers(0, 40, size=int(rng.integers(1, 5)))]
+        for _ in range(30)
+    ]
+    queries += [[7], [7, 3], [8, 8, 8], [8, 7], [0, 1, 2, 3, 4, 5]]
+    return ti, ji, wd, queries, root
+
+
+@pytest.fixture(scope="module")
+def stores(built):
+    ti, ji, wd, queries, _ = built
+    tdec = TermDecoder(ti, device="cpu")
+    jdec = JTermDecoder(ji)
+    return (t_ds.DeviceServingStore(ti, tdec, wd),
+            j_ds.DeviceServingStore(ji, jdec, wd), tdec)
+
+
+def test_store_layout_matches_reference(stores):
+    ts, js, _ = stores
+    assert ts.NB == js.NB and ts.store_bytes == js.store_bytes
+    np.testing.assert_array_equal(ts.blk_off, js.blk_off)
+    np.testing.assert_array_equal(ts.nb, js.nb)
+    np.testing.assert_array_equal(ts._dstore.numpy(),
+                                  np.asarray(js._dstore).reshape(-1, 256))
+    np.testing.assert_array_equal(ts._wstore.numpy(),
+                                  np.asarray(js._wstore).reshape(-1, 256))
+    assert (ts._dstore[-1] == PAD).all()
+    assert ts.topk_dtw.keys() == js.topk_dtw.keys()
+    for t in ts.topk_dtw:
+        for a, b in zip(ts.topk_dtw[t], js.topk_dtw[t]):
+            np.testing.assert_array_equal(a, b)
+    assert set(ts.build_timings) == {"decode_s", "term_loop_s", "upload_s"}
+
+
+def unpruned_stats(ref):
+    """The reference's batch stats as the port reports them: with
+    nothing pruned its kept and total block counts are one count."""
+    ref = dict(ref)
+    assert ref["blocks_kept"] == ref["blocks_total"]
+    ref["blocks"] = ref.pop("blocks_kept")
+    del ref["blocks_total"]
+    return ref
+
+
+def test_batch_metadata_matches_reference(stores, built):
+    ts, js, _ = stores
+    queries = built[3]
+    tb, tsg, tst = ts._batch_metadata(queries, K)
+    jb, jsg, jst = js._batch_metadata(queries, K, prune=False)
+    assert tsg == jsg and tb.keys() == jb.keys()
+    assert tst == unpruned_stats(jst)
+    for P in tb:
+        ti_, tblk, tqw, ttm = tb[P]
+        ji_, jblk, jqw, jtm = jb[P]
+        assert ti_ == ji_ and ttm == jtm
+        np.testing.assert_array_equal(tblk, jblk)
+        np.testing.assert_array_equal(tqw, jqw)
+    for wl in ([(0, 1.5), (3, 0.25)], [(7, 2.0)], [(1, 1.0)]):
+        assert ts.tau_from_tables(wl, K) == js.tau_from_tables(wl, K)
+
+
+def test_ranked_topk_matches_reference_store_and_oracle(stores, built):
+    ts, js, tdec = stores
+    ti, _, wd, queries, _ = built
+    t_s, t_d, t_st = ts.ranked_topk(queries, k=K, prune=False)
+    j_s, j_d, j_st = js.ranked_topk(queries, k=K, prune=False)
+    j_s1, _, _ = js.ranked_topk(queries, k=K + 1, prune=False)
+    assert t_st == unpruned_stats(j_st)
+    for i, q in enumerate(queries):
+        assert t_s[i].dtype == np.float32
+        np.testing.assert_array_equal(t_s[i], j_s[i], err_msg=f"{i} {q}")
+        for j in range(t_s[i].shape[0]):
+            if (j_s1[i] == t_s[i][j]).sum() == 1:
+                assert t_d[i][j] == j_d[i][j], (i, q, j)
+        want = t_ranked.ranked_or(ti, tdec, wd, q, K)
+        assert t_s[i].shape == want.shape
+        np.testing.assert_allclose(t_s[i], want, rtol=2e-4, atol=1e-5,
+                                   err_msg=f"query {i} {q}")
+        np.testing.assert_array_equal(
+            want, j_ranked.ranked_or(built[1], JTermDecoder(built[1]), wd, q,
+                                     K))
+
+
+def test_ranked_or_batch_matches_store(stores, built):
+    ts, _, tdec = stores
+    ti, ji, wd, queries, _ = built
+    old = t_db.ranked_or_batch(ti, tdec, wd, queries, k=K)
+    ref = j_db.ranked_or_batch(ji, JTermDecoder(ji), wd, queries, k=K)
+    new_s, _, _ = ts.ranked_topk(queries, k=K, prune=False)
+    for i in range(len(queries)):
+        np.testing.assert_array_equal(old[i], ref[i])
+        np.testing.assert_allclose(new_s[i], old[i], rtol=1e-6, atol=1e-7)
+    for op in ("and", "or"):
+        np.testing.assert_array_equal(
+            t_db.boolean_count_batch(tdec, queries, op),
+            j_db.boolean_count_batch(JTermDecoder(ji), queries, op))
+    for a, b in zip(t_db.and_results_batch(tdec, queries),
+                    j_db.and_results_batch(JTermDecoder(ji), queries)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pruned_ranked_topk_raises(stores):
+    ts, _, _ = stores
+    with pytest.raises(NotImplementedError, match="BMW"):
+        ts.ranked_topk([[0, 1]], k=K, prune=True, lazy_cache=object())
+    # without a lazy cache prune=True has nothing to prune with
+    a, _, _ = ts.ranked_topk([[0, 1]], k=K, prune=True)
+    b, _, _ = ts.ranked_topk([[0, 1]], k=K, prune=False)
+    np.testing.assert_array_equal(a[0], b[0])
+
+
+# ---------------------------------------------------------------------------
+# tools.queries on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _cli_files(built, tmp_path):
+    ti, _, wd, queries, _ = built
+    idx = str(tmp_path / "idx.npz")
+    ti.save(idx)
+    wand = str(tmp_path / "w")
+    wd.save(wand)
+    qfile = tmp_path / "q.txt"
+    qfile.write_text("".join(" ".join(map(str, q)) + "\n" for q in queries)
+                     + "0 99\n")  # a query naming an unknown term is dropped
+    return idx, wand + ".npz", str(qfile)
+
+
+def test_queries_cli_device_engine_on_cpu(built, tmp_path, capsys):
+    import json
+
+    idx, wand, qfile = _cli_files(built, tmp_path)
+    recs = t_queries.main(["single_packed_dint", "ranked_or:and:or", idx,
+                           wand, "--queries", qfile, "--runs", "2",
+                           "--engine", "device", "--device", "cpu"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert [r["type"] for r in lines] == ["ranked_or", "and", "or"]
+    assert lines == recs
+    n = len(built[3])
+    for r in lines:
+        assert r["queries"] == str(n) and r["device"] == "cpu"
+        assert {"avg", "q50", "q90", "q95", "batch_shape"} <= set(r)
+    ranked = lines[0]
+    assert {"store_bytes", "store_build_s", "metadata_upload_bytes",
+            "single_term_queries"} <= set(ranked)
+    ji = built[1]
+    queries = built[3]
+    for r, op in zip(lines[1:], ("and", "or")):
+        want = j_db.boolean_count_batch(JTermDecoder(ji), queries, op)
+        assert r["total_results"] == str(int(want.sum()))
+
+
+@pytest.mark.parametrize("args,match", [
+    (["--engine", "host"], "item 1"),
+    (["--engine", "native"], "item 5"),
+])
+def test_queries_cli_unported_engines_raise(built, tmp_path, args, match):
+    idx, wand, qfile = _cli_files(built, tmp_path)
+    with pytest.raises(NotImplementedError, match=match):
+        t_queries.main(["single_packed_dint", "ranked_or", idx, wand,
+                        "--queries", qfile, "--device", "cpu", *args])
+
+
+@pytest.mark.parametrize("op", ["wand", "maxscore"])
+def test_queries_cli_pruned_ops_raise(built, tmp_path, op):
+    idx, wand, qfile = _cli_files(built, tmp_path)
+    with pytest.raises(NotImplementedError, match="BMW"):
+        t_queries.main(["single_packed_dint", op, idx, wand, "--queries",
+                        qfile, "--device", "cpu"])

@@ -41,8 +41,50 @@ def test_port_file_list_is_complete():
     rel = {os.path.relpath(f, REPO) for f in _port_files()}
     for must in ("chip_smoke.py", "dint_tpu_torch/kernels/decode_local.py",
                  "dint_tpu_torch/tools/decode.py",
-                 "dint_tpu_torch/backend.py"):
+                 "dint_tpu_torch/backend.py",
+                 "dint_tpu_torch/codecs/interpolative.py",
+                 "dint_tpu_torch/codecs/dint.py",
+                 "dint_tpu_torch/index/dint_index.py",
+                 "dint_tpu_torch/query/lazy_decode.py",
+                 "dint_tpu_torch/query/ranked.py",
+                 "dint_tpu_torch/query/boolean.py",
+                 "dint_tpu_torch/query/term_decode.py",
+                 "dint_tpu_torch/query/device_batch.py",
+                 "dint_tpu_torch/query/device_serve.py",
+                 "dint_tpu_torch/tools/create_freq_index.py",
+                 "dint_tpu_torch/tools/create_wand_data.py",
+                 "dint_tpu_torch/tools/queries.py"):
         assert must in rel
+
+
+@pytest.mark.parametrize("module", [
+    "dint_tpu_torch.codecs.interpolative", "dint_tpu_torch.codecs.dint",
+    "dint_tpu_torch.index.dint_index", "dint_tpu_torch.query.lazy_decode",
+    "dint_tpu_torch.query.ranked", "dint_tpu_torch.query.boolean",
+    "dint_tpu_torch.query.term_decode", "dint_tpu_torch.query.device_batch",
+    "dint_tpu_torch.query.device_serve",
+    "dint_tpu_torch.tools.create_freq_index",
+    "dint_tpu_torch.tools.create_wand_data", "dint_tpu_torch.tools.queries",
+])
+def test_serving_modules_import_without_jax(module):
+    """Each module of the serving slice imports in a fresh interpreter
+    that cannot import jax or the reference package, and builds nothing
+    at import."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'dint_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import {module}\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 @pytest.mark.parametrize(
