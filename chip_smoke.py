@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two main paths on one NVIDIA card: the
-vroom gather decode and fused ranked query serving.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card: the vroom
+gather decode, the whole bench (gather and ladder engines, store probe),
+the one-hot kernel ablation and fused ranked query serving.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE]
 
@@ -12,7 +13,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    side by side;
 2. data: ``bench.py``'s synthetic collection (6000 lists, 4M docs,
    avg_len 5000) from ``--seed``, encoded as ``single_rect_dint`` and
-   ``multi_packed_dint`` by the port's encoder, under ``.chip_smoke/``;
+   ``multi_packed_dint`` by the port's encoder, under ``.chip_smoke/``
+   (``tools.bench``'s own create-or-load artifacts);
 3. kernels: on the card, each class kernel (K1 gather32, K2 gather16,
    K3 zero) against its plain PyTorch twin under ``torch.equal``, at the
    bench image's shapes and on an edge-case batch, with salts 0, 1 and
@@ -23,29 +25,49 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 4. decode path: ``decode_stream(..., runs=2000, check_collection,
    device="cuda")`` for both types, exact over every list; launch counts
    reset just before and read just after;
-5. serve data: from the phase-2 collection, the ``.sizes`` file, a
+5. bench path: ``tools.bench.run`` on the card at full size: the gather
+   and ladder legs of both types under 2000 chained runs (the ladder
+   legs checked against the whole collection, the gather legs against a
+   sample of lists, as ``bench.py`` does) and the store probe (K5);
+   launch counts reset just before and read just after; the record is
+   printed with the card in it; a torch.profiler trace of 50 chained
+   ladder runs (device busy time against the bytes bound);
+6. K5 against its plain version under ``torch.equal`` at the bench
+   output size and at one tile, the same three salts; its time,
+   ``fill_``'s time on the same bytes and the bound; the probe's chain
+   salt on the card against the plain version's on the host;
+7. ablation path: the per-unit plan of the single_rect stream,
+   ``tools.kernel_ablate.run`` over it (every variant checked against
+   ``gather_flat`` on the whole plan, then timed under the salted
+   chain); launch counts reset just before and read just after; then K6
+   and K7 against ``decode_gather_rows`` (their plain version) on 512
+   plan rows and an edge batch, and against ``gather_flat`` on the whole
+   plan, the same three salts, under ``torch.equal``; their times, the
+   plain version's, and K1's on the same rows;
+8. serve data: from the phase-2 collection, the ``.sizes`` file, a
    ``multi_packed_dint`` index (``tools.create_freq_index``), its wand
    data (``tools.create_wand_data``) and a 500-query log (2-5 distinct
    uniform terms a query, seed 7) plus four edge queries; each step
    timed;
-6. serve path: the index loaded, ``TermDecoder(device="cuda")`` and a
+9. serve path: the index loaded, ``TermDecoder(device="cuda")`` and a
    ``DeviceServingStore`` over every term (K1-K3 decode the index once),
    then the log through ``tools.queries``' device path: ``ranked_or``
    with k 10 (fused store, K4), one warm-up and 10 timed passes, and
    ``and``/``or`` counts; launch counts reset just before and read
    just after; K1-K3 against their twins under ``torch.equal`` on the
    class tensors of the docid and freq engines that path built;
-7. K4 against its plain version under ``torch.equal`` at every bucket
-   shape of the log and on an edge batch, each shape timed;
-8. exactness: every term's docids and freqs decoded on the card equal
-   the collection; every query's top-10 scores (and the scores of
-   the returned docids) equal a numpy oracle over the collection files
-   within rtol 2e-4, atol 1e-5; the and/or counts equal numpy's;
-9. a torch.profiler trace of 3 serving passes.
+10. K4 against its plain version under ``torch.equal`` at every bucket
+    shape of the log and on an edge batch, each shape timed;
+11. exactness: every term's docids and freqs decoded on the card equal
+    the collection; every query's top-10 scores (and the scores of
+    the returned docids) equal a numpy oracle over the collection files
+    within rtol 2e-4, atol 1e-5; the and/or counts equal numpy's;
+12. a torch.profiler trace of 3 serving passes.
 
 Prints the stats records, the card line, one ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero with
-no result line when there is no card or no checkout around it.
+line (K1-K7) and, last, ``{"ok": true, "device": {...}}``.  Exits
+non-zero with no result line when there is no card or no checkout
+around it.
 """
 
 from __future__ import annotations
@@ -65,14 +87,15 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, ".chip_smoke")
 TYPES = ("single_rect_dint", "multi_packed_dint")
-DICT_KIND = {"single_rect_dint": "rectangular",
-             "multi_packed_dint": "multi_packed"}
 NUM_LISTS = 6000
 NUM_DOCS = 4_000_000
 AVG_LEN = 5000.0
 SALTS = (0, 1, 0xFFFFFFFF)
 RUNS = 2000  # chained runs a decode_stream times, as bench.py
 PROFILE_RUNS = 200
+LADDER_PROFILE_RUNS = 50
+ABLATE_RUNS = 20  # chained runs a variant, tools/kernel_ablate's default
+ONEHOT_PLAIN_ROWS = 512  # plan rows K6/K7 are held to their plain version on
 MASK = 0xFFFFFFFF
 SERVE_TYPE = "multi_packed_dint"  # the index of bench_artifacts/queries.json
 SERVE_RUNS = 10  # timed serving passes after one warm-up
@@ -83,12 +106,17 @@ TOPK = 10
 RTOL, ATOL = 2e-4, 1e-5  # tests/test_device_serve.py:87
 PROFILE_PASSES = 3
 K4_EDGE_G = (1, 7, 8193)
+DECODE_KERNELS = ("K1_gather32", "K2_gather16", "K3_zero")
+SERVE_KERNELS = DECODE_KERNELS + ("K4_block_copy",)
+BENCH_KERNELS = DECODE_KERNELS + ("K5_store_tile",)
+ABLATE_KERNELS = DECODE_KERNELS + ("K6_onehot_block", "K7_onehot_group")
 # Published H100 device-memory rates (NVIDIA data sheets), by card name.
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H100", 3.35e12))
 # Integer ALU rate outside the tensor cores: 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost (Hopper white paper), in operations a second.
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (data sheet)
 
 
 def fail(msg: str) -> None:
@@ -119,11 +147,12 @@ def hbm_rate(name: str) -> float:
 
 
 def build_all():
-    """Build every CUDA kernel library (one nvcc each) and the three
+    """Build every CUDA kernel library (one nvcc each) and the four
     native host libraries concurrently; return the slowest kernel
     build's wall seconds."""
     from dint_tpu_torch.codecs import native
     from dint_tpu_torch.kernels import cuda_ext, planner_native
+    from dint_tpu_torch.query import native_host
     from dint_tpu_torch.stats import native_stats
 
     def timed(fn):
@@ -137,6 +166,7 @@ def build_all():
         "native encoder": native.get_lib,
         "native planner": planner_native.get_lib,
         "native stats": native_stats.get_lib,
+        "native query host": native_host.get_lib,
     })
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
@@ -151,28 +181,32 @@ def build_all():
 
 def make_data(root: str, seed: int, num_lists: int, num_docs: int,
               avg_len: float):
-    """Synthesize and encode the collection under ``root``; return
-    (collection basename, {type: (stream, dict file)})."""
-    from dint_tpu_torch.io import collection, synth
-    from dint_tpu_torch.tools import encode
+    """Synthesize and encode the collection under ``root`` (a fresh
+    ``tools.bench`` cache directory, so the bench path finds its
+    artifacts made); return (collection basename, {type: (stream, dict
+    file)})."""
+    from dint_tpu_torch.tools import bench
 
     shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    base = os.path.join(root, "bench_collection")
-    t0 = time.perf_counter()
-    docs, freqs = synth.make_collection(num_lists, num_docs, seed=seed,
-                                        avg_len=avg_len)
-    collection.write_freq_collection(base, docs, freqs, num_docs)
-    log(f"synthesized {len(docs)} lists in {time.perf_counter() - t0:.1f} s")
     out = {}
-    for t in TYPES:
-        t0 = time.perf_counter()
-        stream = os.path.join(root, f"bench.{t}.bin")
-        encode.encode_collection(t, base + ".docs", stream, cache_dir=root)
-        out[t] = (stream, os.path.join(
-            root, f"dict.bench_collection.docs.{DICT_KIND[t]}.DSF-65536-16"))
-        log(f"encoded {t} in {time.perf_counter() - t0:.1f} s")
-    return base, out
+    t0 = time.perf_counter()
+    out["single_rect_dint"] = bench.build_artifacts(root, num_lists, num_docs,
+                                                    avg_len, seed)
+    log(f"synthesized and encoded single_rect_dint in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["multi_packed_dint"] = bench.build_multi_artifacts(root)
+    log(f"encoded multi_packed_dint in {time.perf_counter() - t0:.1f} s")
+    return os.path.join(root, "bench_collection"), out
+
+
+def drop_plan_caches(root: str) -> None:
+    """Remove the image and plan caches decode_stream left beside the
+    streams, so that the next path plans its own (its cold start is
+    then a plan, not a file read)."""
+    for f in os.listdir(root):
+        if ".plan." in f or ".image." in f:
+            os.remove(os.path.join(root, f))
 
 
 def load_decoder(stream: str, dict_file: str, type_name: str, device):
@@ -257,6 +291,14 @@ def kernel_cases(engine):
     return cases
 
 
+def u32_err(got, want) -> int:
+    """max |got - want| over the u32 values of two int32 tensors."""
+    import torch
+
+    return int(((got.to(torch.int64) & MASK)
+                - (want.to(torch.int64) & MASK)).abs().max())
+
+
 def check_kernels(cases):
     """Every kernel call of ``cases`` equal to its twin on the card for
     every salt; return {kernel name: max |kernel - twin|} over the u32
@@ -271,12 +313,11 @@ def check_kernels(cases):
                 st = torch.tensor([s], dtype=torch.int64, device="cuda")
                 got, want = kern(st), plain(st)
                 torch.cuda.synchronize()
-                diff = ((got.to(torch.int64) & MASK)
-                        - (want.to(torch.int64) & MASK)).abs().max()
-                worst = max(worst, int(diff))
+                diff = u32_err(got, want)
+                worst = max(worst, diff)
                 if not torch.equal(got, want):
                     fail(f"{name} disagrees with its twin at salt {s:#x} "
-                         f"(max abs err {int(diff)})")
+                         f"(max abs err {diff})")
         errs[name] = worst
     return errs
 
@@ -441,23 +482,227 @@ def profile_device(fn, runs: int, trace_path: str):
 
 
 # ---------------------------------------------------------------------------
+# The bench path (ladder legs, K5) and the ablation path (K6, K7)
+# ---------------------------------------------------------------------------
+
+
+def bound_entry(nbytes: int, t_ops_ms: float, card_name: str) -> dict:
+    t_bytes = nbytes / hbm_rate(card_name) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops_ms),
+            "bound_by": "bytes" if t_bytes >= t_ops_ms else "operations",
+            "bytes": nbytes}
+
+
+def drive_bench_path(seed: int):
+    """Phase 5: every leg of tools.bench on the card, launches counted
+    from zero; return (record, {leg: decode_stream record}, counts)."""
+    from dint_tpu_torch.tools import bench
+
+    drop_plan_caches(CACHE)
+    reset_launch_counts()
+    rec = bench.run(CACHE, "cuda", RUNS, NUM_LISTS, NUM_DOCS, AVG_LEN, seed)
+    counts = launch_counts()
+    legs = rec.pop("legs")
+    for leg in ("ladder", "multi_ladder"):
+        if legs[leg].get("check") != "ok":
+            fail(f"bench {leg} leg: collection check did not pass")
+    for name in BENCH_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{name} was never launched on the bench path")
+    return rec, legs, counts
+
+
+def profile_ladder(stream: str, dict_file: str, card_name: str,
+                   trace_path: str):
+    """Device-busy time of a chained ladder run against its bytes bound
+    (the image read once, 4 B an int written once)."""
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.tools import decode
+
+    arena, meta = stream_mod.load_stream(stream)
+    view = decode.load_dictionary("single_rect_dint", dict_file).decode_view()
+    dec = decode.LadderStreamDecoder(arena, meta, view, False, device="cuda")
+    prof = profile_device(lambda: dec.engine.chain(LADDER_PROFILE_RUNS),
+                          LADDER_PROFILE_RUNS, trace_path)
+    nbytes = dec.plan_bytes + 4 * dec.engine.plan.total_ints
+    prof.update({"image_bytes": dec.plan_bytes,
+                 "classes": [[w, int(a0.shape[1]) * 128]
+                             for _, w, a0, _ in dec.engine._dev],
+                 "bound_ms_per_run": nbytes / hbm_rate(card_name) * 1e3})
+    return prof
+
+
+def check_k5(num_integers: int, card_name: str) -> dict:
+    """Phase 6: K5 against its plain version at the bench output size
+    and at one tile, its chain against the plain chain, and its times;
+    returns its kernels-line entry."""
+    import torch
+
+    from dint_tpu_torch.kernels import store_probe as sp
+
+    rows = sp.probe_rows(num_integers * 4)
+    worst = 0
+    for r in (rows, 1024):
+        for s in SALTS:
+            st = sp.salt_tensor(s, "cuda")
+            got, want = sp.store_tile(st, r), sp.store_tile_plain(st, r)
+            torch.cuda.synchronize()
+            worst = max(worst, u32_err(got, want))
+            if not torch.equal(got, want):
+                fail(f"K5 disagrees with its plain version at {r} rows, "
+                     f"salt {s:#x}")
+    on_card = int(sp.probe_chain(2048, 1024, 3, torch.device("cuda")).item())
+    on_host = int(sp.probe_chain(2048, 1024, 3, torch.device("cpu")).item())
+    if on_card != on_host:
+        fail(f"probe chain salt {on_card} on the card, {on_host} on the host")
+    log(f"K5 equals its plain version at {rows} and 1024 rows; chain salt "
+        f"{on_card & MASK:#x} on both")
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
+    st = sp.salt_tensor(0x9E3779B9, "cuda")
+    buf = torch.empty((rows, sp.ROW_LANES), dtype=torch.int32, device="cuda")
+    entry = {
+        "name": "K5_store_tile",
+        "route": "cuda",
+        "source": "dint_tpu_torch/kernels/csrc/store_probe.cu",
+        "replaces": "dint_tpu/kernels/store_probe.py:48 (kernel :37 in "
+                    "_probe_fns :32)",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": time_ms(lambda: sp.store_tile(st, rows, out=buf), 50, flush),
+        "plain_ms": time_ms(lambda: sp.store_tile_plain(st, rows), 5, flush),
+        **bound_entry(rows * sp.ROW_LANES * 4 + 4,
+                      4 * rows * sp.ROW_LANES / INT32_OPS_PER_S * 1e3,
+                      card_name),
+        "library_ms": time_ms(lambda: buf.fill_(7), 50, flush),
+        "rows": rows,
+    }
+    log(f"K5 {entry['ms'] * 1e3:.1f} us, fill_ "
+        f"{entry['library_ms'] * 1e3:.1f} us, bound "
+        f"{entry['bound_ms'] * 1e3:.1f} us")
+    return entry
+
+
+def onehot_edge_batch(rows: int = 256, seed: int = 11):
+    """K6/K7 inputs on the card that force the edge cases: table words
+    with bit 31 set, n = 0, 1 and 256, and indices outside [0, 256)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    vidx = rng.integers(0, 256, (rows, 256)).astype(np.int32)
+    vidx[3, 5], vidx[4, 7], vidx[9, 0], vidx[9, 255] = 300, -1, 256, 2**31 - 1
+    tab = rng.integers(0, 1 << 32, (rows, 256), dtype=np.uint64)
+    tab[:, ::7] |= 0x80000000
+    n = rng.integers(0, 257, rows).astype(np.int32)
+    n[:10] = 256
+    n[10], n[11] = 0, 1
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                 for a in (vidx, tab.astype(np.uint32).view(np.int32), n))
+
+
+def ablate_phases(stream: str, dict_file: str, card_name: str):
+    """Phase 7: the ablation as a user runs it (launches counted from
+    zero), then K6 and K7 against their plain version and the flat
+    gather, and their times.  Returns (ablation record, launch counts,
+    [K6 entry, K7 entry])."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+    from dint_tpu_torch.kernels import decode_pallas as dp
+    from dint_tpu_torch.tools import kernel_ablate as ka
+
+    t0 = time.perf_counter()
+    plan = ka.plan_of_stream("single_rect_dint", stream, dict_file)
+    log(f"ablation plan: {plan.rows} rows in {time.perf_counter() - t0:.1f} s")
+    reset_launch_counts()
+    rec = ka.run(plan, ABLATE_RUNS, ka.VARIANTS, "cuda")
+    counts = launch_counts()
+    for name in ABLATE_KERNELS:
+        if counts[name] <= 0:
+            fail(f"{name} was never launched on the ablation path")
+    vi, v8, tbl, nn = ka.plan_arrays(plan, "cuda")
+    R = int(vi.shape[0])
+    kernels = (("K6_onehot_block", dp.decode_gather_pallas, 176,
+                "_gather_block_kernel :48"),
+               ("K7_onehot_group", dp.decode_gather_pallas_grid, 150,
+                "_gather_group_kernel :103"))
+    head = tuple(a[:ONEHOT_PLAIN_ROWS] for a in (vi, tbl, nn))
+    errs = {name: 0 for name, *_ in kernels}
+    for s in SALTS:
+        st = torch.tensor([s], dtype=torch.int64, device="cuda")
+        cases = [("plan head", head, dl.decode_gather_rows(*head, st)),
+                 ("whole plan", (vi, tbl, nn), dl.gather_flat(v8, tbl, nn, st))]
+        edge = onehot_edge_batch()
+        cases.append(("edge batch", edge, dl.decode_gather_rows(*edge, st)))
+        for name, kern, _, _ in kernels:
+            for label, args, want in cases:
+                got = kern(*args, st)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], u32_err(got, want))
+                if not torch.equal(got, want):
+                    fail(f"{name} disagrees on the {label} at salt {s:#x} "
+                         f"(max abs err {errs[name]})")
+        del cases
+    log(f"K6 and K7 equal decode_gather_rows on {ONEHOT_PLAIN_ROWS} plan rows "
+        f"and an edge batch, and gather_flat on all {R} rows")
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
+    st = torch.tensor([0x9E3779B9], dtype=torch.int64, device="cuda")
+    plain_ms = time_ms(lambda: dl.decode_gather_rows(vi, tbl, nn, st), 1,
+                       flush)
+    k1_ms = time_ms(lambda: dl.gather32(v8, tbl, nn, st), 20, flush)
+    rate = hbm_rate(card_name)
+    rec["same_rows"] = {
+        "rows": R,
+        "K1_gather32_ms": k1_ms,
+        "K1_bound_ms": (R * (256 + 1024 + 1024 + 4) + 8) / rate * 1e3,
+    }
+    entries = []
+    for name, kern, line, body in kernels:
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dint_tpu_torch/kernels/csrc/onehot_gather.cu",
+            "replaces": f"dint_tpu/kernels/decode_pallas.py:{line} ({body})",
+            "launches": counts[name],
+            "launches_by_path": {"ablate": counts[name]},
+            "max_abs_err": errs[name],
+            "ms": time_ms(lambda: kern(vi, tbl, nn, st), 10, flush),
+            "plain_ms": plain_ms,
+            **bound_entry(R * (3 * 1024 + 4) + 8,
+                          2 * 4 * 256 * 256 * R / INT8_TENSOR_OPS_PER_S * 1e3,
+                          card_name),
+            "library_ms": None,
+            "rows": R,
+        })
+        rec["same_rows"][name + "_ms"] = entries[-1]["ms"]
+        log(f"{name} {entries[-1]['ms'] * 1e3:.1f} us on {R} rows (bound "
+            f"{entries[-1]['bound_ms'] * 1e3:.1f} us, K1 {k1_ms * 1e3:.1f} us, "
+            f"plain {plain_ms:.1f} ms)")
+    return rec, counts, entries
+
+
+# ---------------------------------------------------------------------------
 # Serving: data, main path, K4, exactness
 # ---------------------------------------------------------------------------
 
 
-def reset_launch_counts() -> None:
-    from dint_tpu_torch.kernels import decode_local as dl
-    from dint_tpu_torch.query import device_serve as ds
+def kernel_modules():
+    """The modules whose wrappers count their launches."""
+    from dint_tpu_torch.kernels import decode_local, decode_pallas, store_probe
+    from dint_tpu_torch.query import device_serve
 
-    dl.reset_launch_counts()
-    ds.reset_launch_counts()
+    return decode_local, device_serve, store_probe, decode_pallas
+
+
+def reset_launch_counts() -> None:
+    for m in kernel_modules():
+        m.reset_launch_counts()
 
 
 def launch_counts():
-    from dint_tpu_torch.kernels import decode_local as dl
-    from dint_tpu_torch.query import device_serve as ds
-
-    return {**dl.launch_counts(), **ds.launch_counts()}
+    out = {}
+    for m in kernel_modules():
+        out.update(m.launch_counts())
+    return out
 
 
 def read_collection(base: str):
@@ -781,8 +1026,8 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
         state, recs, times = drive_serve_path(paths, SERVE_RUNS, BOOL_RUNS)
     counts = launch_counts()
     log(f"serve path launches: {counts}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SERVE_KERNELS:
+        if counts[name] <= 0:
             fail(f"{name} was never launched on the serve path")
     class_errs = check_serve_classes(kept, counts)
     log(f"K1-K3 equal their twins on the serve path's classes: {class_errs}")
@@ -882,6 +1127,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 4. the decode path, launches counted from zero
+    drop_plan_caches(CACHE)
     recs, counts = drive_main_path(data, base, RUNS, "cuda")
     for t in TYPES:
         r = recs[t]
@@ -894,7 +1140,30 @@ def main(argv=None) -> int:
         }), flush=True)
     torch.cuda.empty_cache()
 
-    # 5-9. serving: data, the serve path (launches counted from zero),
+    # 5. the bench path (gather and ladder legs, the store probe),
+    # launches counted from zero; the ladder's device-busy time
+    bench_rec, bench_legs, bench_counts = drive_bench_path(args.seed)
+    print(json.dumps({"bench": {**bench_rec, "launches": bench_counts,
+                                "nvidia_smi": smi}}), flush=True)
+    ladder_prof = profile_ladder(*data["single_rect_dint"], kind,
+                                 os.path.join(CACHE, "ladder_trace.json"))
+    print(json.dumps({"ladder_profile": ladder_prof}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 6. K5 against its plain version, and its times
+    k5 = check_k5(total, kind)
+    k5["launches"] = bench_counts["K5_store_tile"]
+    k5["launches_by_path"] = {"bench": k5["launches"]}
+
+    # 7. the ablation path, launches counted from zero; K6 and K7
+    # against their plain version and the flat gather, and their times
+    ablate, ablate_counts, onehot = ablate_phases(*data["single_rect_dint"],
+                                                  kind)
+    print(json.dumps({"ablation": {**ablate, "launches": ablate_counts,
+                                   "nvidia_smi": smi}}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 8-12. serving: data, the serve path (launches counted from zero),
     # K4 against its plain version, exactness, profiler
     paths, data_s = make_serve_data(CACHE, base)
     serve = serve_phases(base, paths, kind,
@@ -902,6 +1171,8 @@ def main(argv=None) -> int:
     serve["data_s"] = data_s
     for k in kernels:
         by_path = {"decode": sum(c[k["name"]] for c in counts.values()),
+                   "bench": bench_counts[k["name"]],
+                   "ablate": ablate_counts[k["name"]],
                    "serve": serve["launches"][k["name"]]}
         if by_path["decode"] <= 0:
             fail(f"{k['name']} was never launched on the decode path")
@@ -911,7 +1182,7 @@ def main(argv=None) -> int:
                                serve["class_errs"][k["name"]])
     k4 = serve.pop("k4")
     k4["launches_by_path"] = {"serve": k4["launches"]}
-    kernels.append(k4)
+    kernels += [k4, k5, *onehot]
     ranked = serve["records"]["ranked_or"]
     print(json.dumps({"serve": {
         "type": "ranked_or", "k": TOPK, "queries": serve["exact"]["queries"],
@@ -932,7 +1203,10 @@ def main(argv=None) -> int:
     print(json.dumps({"serve_profile": serve["profile"]}), flush=True)
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
-               "chain_salt": salt, "profile": prof, "serve": serve,
+               "chain_salt": salt, "profile": prof, "bench": bench_rec,
+               "bench_legs": bench_legs, "bench_launches": bench_counts,
+               "ladder_profile": ladder_prof, "ablation": ablate,
+               "ablation_launches": ablate_counts, "serve": serve,
                "wall_s": time.perf_counter() - t_start}
     log(f"done in {summary['wall_s']:.1f} s")
     if args.out:

@@ -35,9 +35,20 @@ _SIGNATURES = {
         "dint_block_copy": [_P, _P, _P, _P, _P, _P, ctypes.c_int64,
                             ctypes.c_int64, _P],
     },
+    "libdintprobe.so": {
+        # salt, out, rows, row_tile, stream
+        "dint_store_tile": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
+    },
+    "libdintonehot.so": {
+        # vidx, tab, n, salt, out, rows, stream
+        "dint_onehot_block": [_P, _P, _P, _P, _P, ctypes.c_int64, _P],
+        "dint_onehot_group": [_P, _P, _P, _P, _P, ctypes.c_int64, _P],
+    },
 }
 _SOURCES = {"libdintgather.so": "decode_gather.cu",
-            "libdintserve.so": "serve_gather.cu"}
+            "libdintserve.so": "serve_gather.cu",
+            "libdintprobe.so": "store_probe.cu",
+            "libdintonehot.so": "onehot_gather.cu"}
 LIBRARIES = tuple(_SOURCES)
 _libs = {}
 

@@ -25,6 +25,12 @@ outputs and its chain's final salt equal ``dint_tpu``'s bit for bit.
 query path (one 256-int block a unit, never packed across units) and
 rebuilds docids with ``_docid_rebuild``.  u32 data travels as int32 bit
 patterns; wrap arithmetic on it is done in int64 and masked.
+
+Two more plain forms of the same gather live here for the kernel
+ablation (``tools/kernel_ablate.py``): ``gather_flat``, the portable
+plan-order decode every variant is checked against, and
+``decode_gather_rows``, the one-hot matrix product that is the plain
+version of K6 and K7 (``decode_pallas.py``).
 """
 
 from __future__ import annotations
@@ -260,6 +266,51 @@ def zero_plain(n, salt, n_out: int = N_OUT):
     s = salt.to(torch.int64) & _MASK
     out = torch.where(_valid(n, n_out), s, 0)
     return _to_i32(out)
+
+
+def gather_flat(vidx, table, n, salt):
+    """Portable plan-order decode, the yardstick the ablation checks
+    every variant against: out[r, j] = table[r, vidx[r, j] & 255] for
+    j < n[r], else 0, the salt added to the table and removed again.
+    vidx (R, n_out) of any integer dtype (int8 bit patterns included);
+    table (R, 256) int32 holding u32 bits; returns (R, n_out) int32."""
+    return gather32_plain(vidx.to(torch.int64) & 255, table, n, salt)
+
+
+_ONEHOT_CHUNK = 64  # rows a step: the selector is rows x 256 x n_out words
+
+
+def decode_gather_rows(vidx, table, n, salt):
+    """The gather as a one-hot matrix product, in plain PyTorch: the
+    plain version of K6 and K7 (``decode_pallas.py``).  The table plus
+    salt is split into four byte planes biased by -128, the selector
+    A[r, d, j] = [vidx[r, j] == d] picks one entry a column, the product
+    accumulates in int32, and + 128, the bytes reassembled and the salt
+    subtracted restore the word (u32 wrap).  A vidx outside [0, 256)
+    selects nothing and gives 0x80808080 - salt.  vidx (R, n_out) int32,
+    table (R, TC) int32 holding u32 bits, n (R,) int32, salt (1,) int64;
+    returns (R, n_out) int32.  O(R * TC * n_out) work and memory a chunk:
+    for a few hundred rows."""
+    R, NO = vidx.shape
+    TC = table.shape[1]
+    s = salt.to(torch.int64) & _MASK
+    out = torch.empty((R, NO), dtype=torch.int32, device=vidx.device)
+    iota_d = torch.arange(TC, dtype=vidx.dtype, device=vidx.device)
+    for a in range(0, R, _ONEHOT_CHUNK):
+        b = min(a + _ONEHOT_CHUNK, R)
+        t32 = (table[a:b].to(torch.int64) + s) & _MASK
+        # (r, 4, TC) int32 planes in [-128, 127]; int8 x int8 products
+        # would wrap in PyTorch, so the operands are widened first
+        planes = torch.stack(
+            [((t32 >> (8 * k)) & 255) - 128 for k in range(4)], dim=1
+        ).to(torch.int32)
+        sel = (vidx[a:b, None, :] == iota_d[None, :, None]).to(torch.int32)
+        vv = (planes[:, :, :, None] * sel[:, None, :, :]).sum(
+            dim=2, dtype=torch.int32).to(torch.int64) + 128  # (r, 4, NO)
+        val = (vv[:, 0] + (vv[:, 1] << 8) + (vv[:, 2] << 16)
+               + (vv[:, 3] << 24) - s) & _MASK
+        out[a:b] = _to_i32(torch.where(_valid(n[a:b], NO), val, 0))
+    return out
 
 
 _LIB = "libdintgather.so"
@@ -547,12 +598,15 @@ class _ClassEngine:
         return torch.full((1,), value & _MASK, dtype=torch.int64,
                           device=self.device)
 
-    def decode(self, salt: int = 0) -> torch.Tensor:
+    def decode(self, salt=0) -> torch.Tensor:
         """Exact (rows, N_OUT) output (u32 bits in int32) of one run with
-        ``salt``: the salt the u16 and zero classes add is removed."""
-        s = self._salt(salt)
+        ``salt`` (an int, or a (1,) int64 device tensor holding a u32
+        value, which a chain of runs never fetches): the salt the u16
+        and zero classes add is removed."""
+        given = isinstance(salt, torch.Tensor)
+        s = salt if given else self._salt(salt)
         buf = self._run(s)
-        if salt & _MASK:
+        if given or salt & _MASK:
             for c in self._classes:
                 if c.rows and c.mode != 32:
                     o = buf[c.base : c.base + c.rows]
@@ -560,7 +614,7 @@ class _ClassEngine:
                     o.copy_(_to_i32(torch.where(_valid(c.n, N_OUT), u, 0)))
         return buf
 
-    def decode_all(self, salt: int = 0) -> torch.Tensor:
+    def decode_all(self, salt=0) -> torch.Tensor:
         """(engine rows, N_OUT) int32 holding the u32 outputs, in engine
         row order (class-major: zero, u16, i32, each padded to the row
         tile)."""
@@ -678,6 +732,9 @@ class LocalDecodeEngine(_ClassEngine):
             self.eng_out_pos[er] = plan.out_pos[rows]
             self.eng_out_n[er] = plan.out_n[rows]
         self._row_carry = None
+
+    def total_ints(self) -> int:
+        return int(self.plan.out_n.astype(np.int64).sum())
 
     def row_carry(self) -> np.ndarray:
         """(rows,) u32: sum of (gap+1) over all PRIOR rows of the same

@@ -4,14 +4,16 @@ Usage (mirrors vroom_env/decode.cpp:202-263):
 
     python -m dint_tpu_torch.tools.decode <type> <encoded_file>
         [--dict DICT_FILE] [--runs R] [--check-collection FILE]
-        [--device cuda|cpu]
+        [--engine local|ladder] [--device cuda|cpu]
 
 Loads the encoded stream + skip sidecar + dictionary, builds the serving
-image with the native planner, uploads it, runs one warm-up chain of R
-salted runs and then R timed runs, and prints the reference's stats
-record {filename, num_sequences, num_integers, type, tot_elapsed_time,
-ns_x_int, ints_x_sec} (vroom_env/statistics.hpp:7-34) plus the keys the
-reference package adds and the device it ran on.
+image (engine=local: the dictionary-gather image of the native planner,
+decoded by K1-K3; engine=ladder: the canonical ladder image of the
+native unit decoder, unpacked by PyTorch ops), uploads it, runs one
+warm-up chain of R salted runs and then R timed runs, and prints the
+reference's stats record {filename, num_sequences, num_integers, type,
+tot_elapsed_time, ns_x_int, ints_x_sec} (vroom_env/statistics.hpp:7-34)
+plus the keys the reference package adds and the device it ran on.
 """
 
 from __future__ import annotations
@@ -38,10 +40,8 @@ from ..kernels import decode_local
 from . import common
 
 _NOT_PORTED = {
-    "raw": "ROADMAP.md 'Modules still to port' item 3 (the raw chain-scan "
+    "raw": "ROADMAP.md 'Modules still to port' item 2 (the raw chain-scan "
            "engine, kernels/decode_xla.py + kernels/pipeline.py)",
-    "ladder": "ROADMAP.md 'Modules still to port' item 4 (the ladder leg, "
-              "UnpackEngine in kernels/unpack_device.py)",
 }
 
 
@@ -173,6 +173,82 @@ class StreamDecoder:
         return lists
 
 
+class LadderStreamDecoder:
+    """engine='ladder' for DINT streams: the canonical ladder serving
+    image applied to the DINT wire format.
+
+    The dictionary does its work at encode/storage time and at plan
+    time: units host-decode ONCE at load, the flat value stream re-packs
+    into 256-value blocks at no-straddle ladder widths, and the device
+    decode is the broadcast shift/mask engine of
+    ``kernels/unpack_device.py``.  engine='local' (the dictionary-gather
+    serving image) remains the default DINT-semantics engine and the A/B
+    partner.
+
+    ``route`` picks the image build: ``"native"`` (default) is the fused
+    native build, decode -> classify -> bit-pack straight to the
+    lane-major class arrays with no flat intermediate, and raises if the
+    native library does not build; ``"flat"`` is the native flat decode
+    plus the native classify/pack; ``"numpy"`` is the numpy batch parser
+    plus the numpy classify/pack, the oracle the tests compare the other
+    two with."""
+
+    ROUTES = ("native", "flat", "numpy")
+
+    def __init__(self, arena, meta, view, multi: bool, device="cuda",
+                 route: str = "native"):
+        from ..kernels import unpack_device
+        from ..query import native_host
+
+        if route not in self.ROUTES:
+            raise ValueError(f"route {route!r} not in {self.ROUTES}")
+        t0 = time.perf_counter()
+        self.device = resolve_device(device)
+        self.meta = meta
+        lay = units_from_meta(arena, meta, multi)
+        self._list_lens = np.asarray(meta.n, np.int64)
+        if route == "native":
+            classes, tail = native_host.decode_units_to_ladder(
+                view, arena, lay.starts, lay.byte_lens, lay.n, lay.ctx,
+                lay.b_bits,
+            )
+            plan = unpack_device.ladder_plan_prepacked(
+                classes, tail, int(self._list_lens.sum()))
+        elif route == "flat":
+            flat = native_host.decode_units_flat(
+                view, arena, lay.starts, lay.byte_lens, lay.n, lay.ctx,
+                lay.b_bits,
+            )
+            plan = unpack_device.ladder_plan_from_values(flat)
+        else:
+            from ..query.lazy_decode import decode_units_fast_batch
+
+            vals, _ = decode_units_fast_batch(
+                arena, lay.starts, lay.starts + lay.byte_lens, lay.n,
+                view, lay.ctx, lay.b_bits,
+            )
+            # units_from_meta emits units list-major and in-list
+            # sequential, so unit order IS stream order
+            flat = np.concatenate(vals) if vals else np.zeros(0, np.uint32)
+            plan = unpack_device.ladder_plan_from_values(flat, native=False)
+        self.engine = unpack_device.UnpackEngine(plan, device=self.device)
+        self._plan = plan
+        self.plan_bytes = self.engine.device_bytes
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.cold_start_s = time.perf_counter() - t0
+
+    def timed_runs(self, runs: int) -> Tuple[float, int]:
+        elapsed = self.engine.timed_chain(runs)
+        self.final_salt = self.engine.final_checksum
+        return elapsed, self._plan.total_ints
+
+    def gather_lists(self) -> List[np.ndarray]:
+        flat = self.engine.decode_all_ordered()
+        cuts = np.cumsum(self._list_lens)[:-1]
+        return np.split(flat, cuts)
+
+
 def load_dictionary(type_name: str, dict_file: Optional[str], collection_hint=None):
     kind, policy = common.DINT_KINDS[type_name]
     if dict_file:
@@ -206,12 +282,14 @@ def decode_stream(
     dict_mib = (view.table.nbytes + view.offsets.nbytes) / (1 << 20)
     common.log(f"Dictionary memory: {dict_mib:.3f} [MiB]")
     plan_cache = encoded_file + f".plan.v{decode_local.PLAN_VERSION}.npz"
-    dec = StreamDecoder(arena, meta, view, multi, engine, plan_cache, dev)
+    if engine == "ladder":
+        dec = LadderStreamDecoder(arena, meta, view, multi, dev)
+    else:
+        dec = StreamDecoder(arena, meta, view, multi, engine, plan_cache, dev)
     common.log(f"decoding (engine={engine}, device={device_name(dev)})...")
     elapsed, total_ints = dec.timed_runs(runs)
     per_run = elapsed / runs
     ns_x_int = per_run * 1e9 / max(total_ints, 1)
-    img = dec.engine.image
     rec = {
         "filename": encoded_file,
         "num_sequences": str(meta.num_lists),
@@ -225,13 +303,16 @@ def decode_stream(
         "plan_bytes": str(dec.plan_bytes),
         # time-to-first-decoded-int: one-time plan + upload wall time
         "cold_start_s": f"{dec.cold_start_s:.3f}",
-        "rows": str(img.n0.shape[0] + img.n16.shape[0] + img.n32.shape[0]),
-        "geometry": (
+    }
+    img = getattr(dec.engine, "image", None)
+    if img is not None:
+        rec["rows"] = str(
+            img.n0.shape[0] + img.n16.shape[0] + img.n32.shape[0])
+        rec["geometry"] = (
             f"{decode_local.W_TOKENS}/{decode_local.N_OUT}/"
             f"{decode_local.TABLE_CLS}"
-        ),
-        "device": device_name(dev),
-    }
+        )
+    rec["device"] = device_name(dev)
     if check_collection:
         got = dec.gather_lists()
         expect, _ = common.gap_lists_of(check_collection)
@@ -254,8 +335,8 @@ def main(argv=None):
     ap.add_argument("--check-collection")
     ap.add_argument(
         "--engine", choices=["local", "raw", "ladder"], default="local",
-        help="local (the dictionary-gather serving image; the only engine "
-        "ported so far)",
+        help="local (the dictionary-gather serving image, default) or "
+        "ladder (the canonical ladder image); raw is not ported yet",
     )
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")

@@ -89,13 +89,31 @@ def test_cli_main_prints_the_record(encoded, capsys):
     assert rec["runs"] == "1" and rec["engine"] == "local"
 
 
-@pytest.mark.parametrize("engine", ["raw", "ladder"])
+@pytest.mark.parametrize("engine", ["raw"])
 def test_unported_engines_name_their_roadmap_item(encoded, engine):
     enc, _, _ = encoded
     stream, dict_file = enc["single_rect_dint"]["torch"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_decode.decode_stream("single_rect_dint", stream, dict_file,
                                runs=1, engine=engine, device="cpu")
+
+
+@pytest.mark.parametrize("type_name", TYPES)
+def test_ladder_engine_decodes_the_mixed_collection(encoded, type_name):
+    """engine='ladder' (ported since) on the three-class collection:
+    exact, and its record has no image geometry, as in the reference."""
+    enc, base, _ = encoded
+    stream, dict_file = enc[type_name]["torch"]
+    jrec = j_decode.decode_stream(type_name, stream, dict_file, runs=1,
+                                  check_collection=base + ".docs",
+                                  engine="ladder")
+    trec = t_decode.decode_stream(type_name, stream, dict_file, runs=1,
+                                  check_collection=base + ".docs",
+                                  engine="ladder", device="cpu")
+    assert trec["check"] == "ok" == jrec["check"]
+    assert set(trec) == set(jrec) | {"device"}
+    assert trec["plan_bytes"] == jrec["plan_bytes"]
+    assert trec["num_integers"] == jrec["num_integers"]
 
 
 def test_default_device_raises_without_cuda(encoded, monkeypatch):

@@ -53,7 +53,13 @@ def test_port_file_list_is_complete():
                  "dint_tpu_torch/query/device_serve.py",
                  "dint_tpu_torch/tools/create_freq_index.py",
                  "dint_tpu_torch/tools/create_wand_data.py",
-                 "dint_tpu_torch/tools/queries.py"):
+                 "dint_tpu_torch/tools/queries.py",
+                 "dint_tpu_torch/kernels/store_probe.py",
+                 "dint_tpu_torch/kernels/decode_pallas.py",
+                 "dint_tpu_torch/kernels/unpack_device.py",
+                 "dint_tpu_torch/query/native_host.py",
+                 "dint_tpu_torch/tools/bench.py",
+                 "dint_tpu_torch/tools/kernel_ablate.py"):
         assert must in rel
 
 
@@ -65,9 +71,13 @@ def test_port_file_list_is_complete():
     "dint_tpu_torch.query.device_serve",
     "dint_tpu_torch.tools.create_freq_index",
     "dint_tpu_torch.tools.create_wand_data", "dint_tpu_torch.tools.queries",
+    "dint_tpu_torch.kernels.store_probe", "dint_tpu_torch.kernels.decode_pallas",
+    "dint_tpu_torch.kernels.unpack_device", "dint_tpu_torch.query.native_host",
+    "dint_tpu_torch.tools.decode", "dint_tpu_torch.tools.bench",
+    "dint_tpu_torch.tools.kernel_ablate",
 ])
 def test_serving_modules_import_without_jax(module):
-    """Each module of the serving slice imports in a fresh interpreter
+    """Each module of the serving and bench slices imports in a fresh interpreter
     that cannot import jax or the reference package, and builds nothing
     at import."""
     import subprocess
