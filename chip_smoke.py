@@ -18,13 +18,21 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 3. kernels: on the card, each class kernel (K1 gather32, K2 gather16,
    K3 zero) against its plain PyTorch twin under ``torch.equal``, at the
    bench image's shapes and on an edge-case batch, with salts 0, 1 and
-   0xFFFFFFFF; each kernel's time (cold L2, CUDA events), its twin's
-   time and its memory bound; the chained-run salt on the card against
-   the twins' on the host for the bench image; a torch.profiler trace
-   of 200 chained runs (device busy time and idle share a run);
+   0xFFFFFFFF; the fused class launch (one grid over the three classes,
+   what the engines run) against its plain version in both flags (raw,
+   exact) on the bench image's classes and on edge batches with an
+   empty class and row counts that are no multiple of a block's rows;
+   timed in turns (cold L2, CUDA events): K1 alone, an empty grid of
+   K1's shape (the floor a launch of its own pays), the fused launch,
+   the three stand-alone launches back to back, K2 and K3 alone, each
+   with its twin's time and its memory bound; the chained-run salt on
+   the card against the twins' on the host for the bench image; a
+   torch.profiler trace of 200 chained runs (device busy time and idle
+   share a run);
 4. decode path: ``decode_stream(..., runs=2000, check_collection,
    device="cuda")`` for both types, exact over every list; launch counts
-   reset just before and read just after;
+   reset just before and read just after: one fused launch a run, no
+   stand-alone K1-K3 launch;
 5. bench path: ``tools.bench.run`` on the card at full size: the gather
    and ladder legs of both types under 2000 chained runs (the ladder
    legs checked against the whole collection, the gather legs against a
@@ -41,9 +49,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    ``gather_flat`` on the whole plan, then timed under the salted
    chain); launch counts reset just before and read just after; then K6
    and K7 against ``decode_gather_rows`` (their plain version) on 512
-   plan rows and an edge batch, and against ``gather_flat`` on the whole
-   plan, the same three salts, under ``torch.equal``; their times, the
-   plain version's, and K1's on the same rows;
+   plan rows and an edge batch (indices outside [0, 256), n = 0, table
+   words with the sign bit, rows that repeat one index 256 times), and
+   against ``gather_flat`` on the whole plan, the same three salts,
+   under ``torch.equal``; their times, the plain version's, and K1's on
+   the same rows;
 8. serve data: from the phase-2 collection, the ``.sizes`` file, a
    ``multi_packed_dint`` index (``tools.create_freq_index``), its wand
    data (``tools.create_wand_data``) and a 500-query log (2-5 distinct
@@ -54,8 +64,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    then the log through ``tools.queries``' device path: ``ranked_or``
    with k 10 (fused store, K4), one warm-up and 10 timed passes, and
    ``and``/``or`` counts; launch counts reset just before and read
-   just after; K1-K3 against their twins under ``torch.equal`` on the
-   class tensors of the docid and freq engines that path built;
+   just after; K1-K3 against their twins, and the fused launch against
+   its plain version in both flags, under ``torch.equal`` on the class
+   tensors of the docid and freq engines that path built;
 10. K4 against its plain version under ``torch.equal`` at every bucket
     shape of the log and on an edge batch, each shape timed;
 11. exactness: every term's docids and freqs decoded on the card equal
@@ -65,9 +76,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 12. a torch.profiler trace of 3 serving passes.
 
 Prints the stats records, the card line, one ``{"kernels": [...]}``
-line (K1-K7) and, last, ``{"ok": true, "device": {...}}``.  Exits
-non-zero with no result line when there is no card or no checkout
-around it.
+line (K1-K7 and the fused class launch) and, last, ``{"ok": true,
+"device": {...}}``.  Exits non-zero with no result line when there is
+no card or no checkout around it.
 """
 
 from __future__ import annotations
@@ -107,15 +118,17 @@ RTOL, ATOL = 2e-4, 1e-5  # tests/test_device_serve.py:87
 PROFILE_PASSES = 3
 K4_EDGE_G = (1, 7, 8193)
 DECODE_KERNELS = ("K1_gather32", "K2_gather16", "K3_zero")
-SERVE_KERNELS = DECODE_KERNELS + ("K4_block_copy",)
-BENCH_KERNELS = DECODE_KERNELS + ("K5_store_tile",)
-ABLATE_KERNELS = DECODE_KERNELS + ("K6_onehot_block", "K7_onehot_group")
+FUSED = "K123_decode_classes"  # the engines' one launch over the classes
+IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
+# the ablation's v_gather32 is K1 alone; its v_ship runs the fused launch
+ABLATE_KERNELS = ("K1_gather32", "K6_onehot_block", "K7_onehot_group")
 # Published H100 device-memory rates (NVIDIA data sheets), by card name.
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H100", 3.35e12))
 # Integer ALU rate outside the tensor cores: 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost (Hopper white paper), in operations a second.
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SMS, SM_HZ = 132, 1.98e9
+INT32_OPS_PER_S = SMS * 64 * SM_HZ
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (data sheet)
 
 
@@ -248,6 +261,63 @@ def edge_batch(device, rows=67, seed=7):
             up(tab32.astype(np.uint32).view(np.int32)), up(n))
 
 
+def fused_args(engine):
+    """(n0, cls16, cls32) of ``engine``'s classes as decode_classes
+    takes them; a class the engine has no rows of is None."""
+    c0, c16, c32 = engine._classes
+    return (c0.n if c0.rows else None,
+            (c16.vidx, c16.tab, c16.n) if c16.rows else None,
+            (c32.vidx, c32.tab, c32.n) if c32.rows else None)
+
+
+def fused_edge_cases(device):
+    """[(label, (n0, cls16, cls32))] on the edge batch: the three classes
+    of 67 rows each (no multiple of a block's 4 rows, so each class's
+    last block is ragged and the next class starts a new block), the
+    same with one class empty or absent, one class alone, and classes
+    of 5, 3 and 1 rows."""
+    v, t16, t32, n = edge_batch(device)
+    c16, c32 = (v, t16, n), (v, t32, n)
+
+    def head(cls, k):
+        return tuple(t[:k] for t in cls)
+
+    return [
+        ("edge 67/67/67", (n, c16, c32)),
+        ("edge no zero class", (None, c16, c32)),
+        ("edge empty u16 class", (n, head(c16, 0), c32)),
+        ("edge no i32 class", (n, c16, None)),
+        ("edge i32 alone", (None, None, c32)),
+        ("edge zero alone", (n, None, None)),
+        ("edge 5/3/1 rows", (n[:5], head(c16, 3), head(c32, 1))),
+    ]
+
+
+def check_fused(cases) -> int:
+    """The fused class launch equal to its plain version on the card, in
+    both flags and for every salt, on every (label, (n0, cls16, cls32))
+    of ``cases``; return max |kernel - plain| over the u32 values."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    worst = 0
+    for label, args in cases:
+        for s in SALTS:
+            st = torch.tensor([s], dtype=torch.int64, device="cuda")
+            for exact in (False, True):
+                got = dl.decode_classes(*args, st, exact)
+                want = dl.decode_classes_plain(*args, st, exact)
+                torch.cuda.synchronize()
+                diff = u32_err(got, want) if got.numel() else 0
+                worst = max(worst, diff)
+                if not torch.equal(got, want):
+                    fail(f"the fused launch disagrees with its plain "
+                         f"version on {label}, salt {s:#x}, exact={exact} "
+                         f"(max abs err {diff})")
+    return worst
+
+
 def class_kernels():
     """[(width class, kernel name, kernel, twin)], K1 first."""
     from dint_tpu_torch.kernels import decode_local as dl
@@ -325,7 +395,9 @@ def check_kernels(cases):
 def kernel_bytes_ops(name: str, rows: int, n_out: int):
     """(bytes moved, integer operations) of one call: each input read
     once, the output written once; ops per output lane as in the
-    kernel body."""
+    kernel body.  Every row counts, the padding rows (n = 0) of a class
+    too: the gather body reads their vidx and tables with the rest (one
+    trip to device memory a block, nothing waits for n)."""
     out, n_b, salt_b = rows * n_out * 4, rows * 4, 8
     if name == "K1_gather32":
         return rows * n_out + rows * 1024 + n_b + salt_b + out, 4 * rows * n_out
@@ -360,28 +432,77 @@ def time_ms(fn, iters: int, flush) -> float:
     return ts[len(ts) // 2]
 
 
+def time_in_turns(fns: dict, iters: int, flush, rounds: int = 2) -> dict:
+    """{name: milliseconds} of each ``fns[name]()``: ``rounds`` passes
+    over the functions in their order, each timed by ``time_ms``; the
+    mean of a function's round medians."""
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            got[name].append(time_ms(fn, iters, flush))
+    return {name: sum(v) / len(v) for name, v in got.items()}
+
+
 def time_kernels(engine, errs, card_name):
-    """One kernels-line entry per kernel at the bench image's shapes."""
+    """One kernels-line entry per class kernel and one for the fused
+    launch, at the bench image's shapes, timed in turns in one go: K1
+    alone, an empty grid of K1's shape, the fused launch, the three
+    stand-alone launches back to back, K2 and K3 alone."""
     import torch
 
-    from dint_tpu_torch.kernels.decode_local import N_OUT
+    from dint_tpu_torch.kernels import cuda_ext
+    from dint_tpu_torch.kernels import decode_local as dl
 
+    N_OUT = dl.N_OUT
     rate = hbm_rate(card_name)
     flush = torch.zeros(24 << 20, dtype=torch.int32, device=engine.device)
     salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device=engine.device)
-    rows_of = {}
-    out = []
     srcs = {
         "K1_gather32": ("_gather32_body", 944),
         "K2_gather16": ("_gather16_body", 914),
         "K3_zero": ("_zero_body", 983),
     }
-    for name, calls in kernel_cases(engine).items():
-        kern, plain, rows = calls[0]  # the bench image's class
-        rows_of[name] = rows
-        ms = time_ms(lambda: kern(salt), 50, flush)
-        plain_ms = time_ms(lambda: plain(salt), 5, flush)
+    cases = {name: calls[0]  # the bench image's class
+             for name, calls in kernel_cases(engine).items()}
+    lib = cuda_ext.lib("libdintgather.so")
+    k1_blocks = cases["K1_gather32"][2] * N_OUT // 1024
+    stream = torch.cuda.current_stream(engine.device).cuda_stream
+
+    def empty():
+        cuda_ext.check("libdintgather.so", "dint_empty_launch",
+                       lib.dint_empty_launch(k1_blocks, stream))
+
+    args = fused_args(engine)
+    buf = torch.empty((engine.rows, N_OUT), dtype=torch.int32,
+                      device=engine.device)
+
+    def three():
+        for c in engine._classes:
+            o = buf[c.base : c.base + c.rows]
+            if c.mode == 0:
+                dl.zero(c.n, salt, N_OUT, out=o)
+            elif c.mode == 16:
+                dl.gather16(c.vidx, c.tab, c.n, salt, out=o)
+            else:
+                dl.gather32(c.vidx, c.tab, c.n, salt, out=o)
+
+    fns = {"K1_gather32": lambda: cases["K1_gather32"][0](salt),
+           "empty": empty,
+           FUSED: lambda: dl.decode_classes(*args, salt, out=buf),
+           "three": three,
+           "K2_gather16": lambda: cases["K2_gather16"][0](salt),
+           "K3_zero": lambda: cases["K3_zero"][0](salt)}
+    ms = time_in_turns(fns, 50, flush)
+    plains = {name: (lambda p=cases[name][1]: p(salt))
+              for name in DECODE_KERNELS}
+    plains[FUSED] = lambda: dl.decode_classes_plain(*args, salt)
+    plain_ms = {name: time_ms(fn, 5, flush) for name, fn in plains.items()}
+    out = []
+    fused_bytes = 0
+    for name in DECODE_KERNELS:
+        rows = cases[name][2]
         nbytes, ops = kernel_bytes_ops(name, rows, N_OUT)
+        fused_bytes += nbytes - 8  # the salt is read once a launch
         t_bytes, t_ops = nbytes / rate * 1e3, ops / INT32_OPS_PER_S * 1e3
         fn, line = srcs[name]
         out.append({
@@ -391,34 +512,82 @@ def time_kernels(engine, errs, card_name):
             "replaces": f"dint_tpu/kernels/decode_local.py:{line} ({fn})",
             "launches": 0,
             "max_abs_err": errs[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
+            "ms": ms[name],
+            "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "rows": rows,
             "bytes": nbytes,
         })
+    out[0]["empty_launch_ms"] = ms["empty"]
+    out[0]["empty_launch_blocks"] = k1_blocks
+    out.append({
+        "name": FUSED,
+        "route": "cuda",
+        "source": "dint_tpu_torch/kernels/csrc/decode_gather.cu",
+        "replaces": "dint_tpu/kernels/decode_local.py:1086 (the class calls "
+                    "of one run, _run :1105 in _pallas_split_fns :1067)",
+        "launches": 0,
+        "max_abs_err": errs[FUSED],
+        "ms": ms[FUSED],
+        "plain_ms": plain_ms[FUSED],
+        **bound_entry(fused_bytes + 8, sum(
+            kernel_bytes_ops(n, cases[n][2], N_OUT)[1]
+            for n in DECODE_KERNELS) / INT32_OPS_PER_S * 1e3, card_name),
+        "library_ms": None,
+        "rows": engine.rows,
+        "three_launches_ms": ms["three"],
+    })
+    for k in out:
+        log(f"{k['name']} {k['ms'] * 1e3:.2f} us (bound "
+            f"{k['bound_ms'] * 1e3:.2f} us, plain {k['plain_ms'] * 1e3:.1f} us)")
+    log(f"empty grid of {k1_blocks} blocks {ms['empty'] * 1e3:.2f} us; the "
+        f"three class launches back to back {ms['three'] * 1e3:.2f} us")
     del flush
     return out
+
+
+def require_fused(counts, path: str, alone=()) -> None:
+    """The engines of ``path`` ran the fused launch: it was launched,
+    every class body ran in it, and no class kernel but those of
+    ``alone`` was launched on its own.  On the CPU (a rehearsal) nothing
+    is launched and nothing is asked."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return
+    if counts[FUSED] <= 0:
+        fail(f"the fused class launch was never launched on the {path} path")
+    for name in DECODE_KERNELS:
+        if counts[name + IN_FUSED] <= 0:
+            fail(f"{name}'s body ran in no fused launch on the {path} path")
+        if name not in alone and counts[name]:
+            fail(f"{name} was launched on its own {counts[name]} times on "
+                 f"the {path} path")
 
 
 def drive_main_path(data, base, runs: int, device):
     """decode_stream for both types with the full collection check;
     return ({type: record}, {type: launch counts})."""
-    from dint_tpu_torch.kernels import decode_local as dl
     from dint_tpu_torch.tools import decode
 
     recs, counts = {}, {}
     for t in TYPES:
         stream, dict_file = data[t]
-        dl.reset_launch_counts()
+        reset_launch_counts()
         rec = decode.decode_stream(t, stream, dict_file, runs=runs,
                                    check_collection=base + ".docs",
                                    device=device)
-        counts[t] = dl.launch_counts()
+        counts[t] = launch_counts()
         if rec.get("check") != "ok":
             fail(f"{t}: collection check did not pass")
+        require_fused(counts[t], f"decode ({t})")
+        # warm-up chain, timed chain, one decode_all: one launch a run
+        # (none on the CPU, which launches nothing)
+        if counts[t][FUSED] not in (0, 2 * runs + 1):
+            fail(f"{t}: {counts[t][FUSED]} fused launches for {runs} runs, "
+                 f"not {2 * runs + 1}")
         recs[t] = rec
     return recs, counts
 
@@ -506,9 +675,9 @@ def drive_bench_path(seed: int):
     for leg in ("ladder", "multi_ladder"):
         if legs[leg].get("check") != "ok":
             fail(f"bench {leg} leg: collection check did not pass")
-    for name in BENCH_KERNELS:
-        if counts[name] <= 0:
-            fail(f"{name} was never launched on the bench path")
+    require_fused(counts, "bench")
+    if counts["K5_store_tile"] <= 0:
+        fail("K5_store_tile was never launched on the bench path")
     return rec, legs, counts
 
 
@@ -584,17 +753,22 @@ def check_k5(num_integers: int, card_name: str) -> dict:
 
 def onehot_edge_batch(rows: int = 256, seed: int = 11):
     """K6/K7 inputs on the card that force the edge cases: table words
-    with bit 31 set, n = 0, 1 and 256, and indices outside [0, 256)."""
+    with bit 31 set, n = 0, 1 and 256, indices outside [0, 256) (one row
+    holds nothing else), and rows that repeat one index 256 times."""
     import torch
 
     rng = np.random.default_rng(seed)
     vidx = rng.integers(0, 256, (rows, 256)).astype(np.int32)
     vidx[3, 5], vidx[4, 7], vidx[9, 0], vidx[9, 255] = 300, -1, 256, 2**31 - 1
+    vidx[4, 0], vidx[5] = -(2**31), 256
+    vidx[6], vidx[7], vidx[8] = 0, 255, 77
+    vidx[12], vidx[13] = 16, -1  # with n = 256 further down the batch
+    vidx[20] = 131
     tab = rng.integers(0, 1 << 32, (rows, 256), dtype=np.uint64)
     tab[:, ::7] |= 0x80000000
     n = rng.integers(0, 257, rows).astype(np.int32)
     n[:10] = 256
-    n[10], n[11] = 0, 1
+    n[10], n[11], n[12], n[13] = 0, 1, 256, 256
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
                  for a in (vidx, tab.astype(np.uint32).view(np.int32), n))
 
@@ -616,6 +790,7 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
     reset_launch_counts()
     rec = ka.run(plan, ABLATE_RUNS, ka.VARIANTS, "cuda")
     counts = launch_counts()
+    require_fused(counts, "ablation", alone=("K1_gather32",))
     for name in ABLATE_KERNELS:
         if counts[name] <= 0:
             fail(f"{name} was never launched on the ablation path")
@@ -653,7 +828,7 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
     rec["same_rows"] = {
         "rows": R,
         "K1_gather32_ms": k1_ms,
-        "K1_bound_ms": (R * (256 + 1024 + 1024 + 4) + 8) / rate * 1e3,
+        "K1_bound_ms": kernel_bytes_ops("K1_gather32", R, 256)[0] / rate * 1e3,
     }
     entries = []
     for name, kern, line, body in kernels:
@@ -672,10 +847,15 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
                           card_name),
             "library_ms": None,
             "rows": R,
+            # what the product reads from shared memory: 32 wgmma a row,
+            # each a 2 KiB selector tile and a 256 B plane tile, at 128 B
+            # a clock and multiprocessor (boost clock)
+            "smem_bound_ms": R * 32 * (2048 + 256) / (SMS * 128 * SM_HZ) * 1e3,
         })
         rec["same_rows"][name + "_ms"] = entries[-1]["ms"]
         log(f"{name} {entries[-1]['ms'] * 1e3:.1f} us on {R} rows (bound "
-            f"{entries[-1]['bound_ms'] * 1e3:.1f} us, K1 {k1_ms * 1e3:.1f} us, "
+            f"{entries[-1]['bound_ms'] * 1e3:.1f} us, shared-memory bound "
+            f"{entries[-1]['smem_bound_ms'] * 1e3:.1f} us, K1 {k1_ms * 1e3:.1f} us, "
             f"plain {plain_ms:.1f} ms)")
     return rec, counts, entries
 
@@ -699,9 +879,13 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts():
+    """{wrapper: launches of its kernel} and, under ``<K1-K3> +
+    IN_FUSED``, the fused launches whose grid ran that class's body."""
     out = {}
     for m in kernel_modules():
         out.update(m.launch_counts())
+    bodies = kernel_modules()[0].fused_body_counts()
+    out.update({k + IN_FUSED: v for k, v in bodies.items()})
     return out
 
 
@@ -997,19 +1181,23 @@ def check_serving(base: str, state):
 
 
 def check_serve_classes(kept, counts):
-    """K1-K3 against their twins on the class tensors of the engines the
+    """K1-K3 against their twins, and the fused launch against its plain
+    version in both flags, on the class tensors of the engines the
     serve path built (the docid and freq class splits); every class
-    kernel launched there must have been checked.  Returns {kernel
-    name: max abs err}."""
+    body that ran there must have been checked.  Returns {kernel name:
+    max abs err}."""
     cases = {}
     for e in kept:
         class_cases(e, cases)
         log("serve engine classes: " + ", ".join(
             f"{c.mode}: {c.rows} rows" for c in e._classes if c.rows))
     for _, name, _, _ in class_kernels():
-        if counts[name] and name not in cases:
+        if counts[name + IN_FUSED] and name not in cases:
             fail(f"{name} ran on the serve path but no class was kept")
-    return check_kernels(cases)
+    errs = check_kernels(cases)
+    errs[FUSED] = check_fused(
+        [(f"serve engine {i}", fused_args(e)) for i, e in enumerate(kept)])
+    return errs
 
 
 def serve_phases(base: str, paths, card_name: str, trace_path: str):
@@ -1026,11 +1214,12 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
         state, recs, times = drive_serve_path(paths, SERVE_RUNS, BOOL_RUNS)
     counts = launch_counts()
     log(f"serve path launches: {counts}")
-    for name in SERVE_KERNELS:
-        if counts[name] <= 0:
-            fail(f"{name} was never launched on the serve path")
+    require_fused(counts, "serve")
+    if counts["K4_block_copy"] <= 0:
+        fail("K4_block_copy was never launched on the serve path")
     class_errs = check_serve_classes(kept, counts)
-    log(f"K1-K3 equal their twins on the serve path's classes: {class_errs}")
+    log(f"K1-K3 and the fused launch equal their plain versions on the "
+        f"serve path's classes: {class_errs}")
     del kept
     torch.cuda.empty_cache()
     store = state["store"]
@@ -1116,7 +1305,9 @@ def main(argv=None) -> int:
         f"{img.n16.shape[0]}, i32 {img.n32.shape[0]}; "
         f"{img.device_bytes()} B")
     errs = check_kernels(kernel_cases(dec.engine))
-    log(f"kernels equal their twins on the card: {errs}")
+    errs[FUSED] = check_fused([("bench image", fused_args(dec.engine))]
+                              + fused_edge_cases("cuda"))
+    log(f"kernels equal their plain versions on the card: {errs}")
     kernels = time_kernels(dec.engine, errs, kind)
     salt = chain_against_twins(dec.engine)
     log(f"chain salt on the card equals the host twins': {salt:#x}")
@@ -1169,15 +1360,23 @@ def main(argv=None) -> int:
     serve = serve_phases(base, paths, kind,
                          os.path.join(CACHE, "serve_trace.json"))
     serve["data_s"] = data_s
+
+    def by_path(key):
+        return {"decode": sum(c[key] for c in counts.values()),
+                "bench": bench_counts[key], "ablate": ablate_counts[key],
+                "serve": serve["launches"][key]}
+
     for k in kernels:
-        by_path = {"decode": sum(c[k["name"]] for c in counts.values()),
-                   "bench": bench_counts[k["name"]],
-                   "ablate": ablate_counts[k["name"]],
-                   "serve": serve["launches"][k["name"]]}
-        if by_path["decode"] <= 0:
-            fail(f"{k['name']} was never launched on the decode path")
-        k["launches"] = sum(by_path.values())
-        k["launches_by_path"] = by_path
+        # a class kernel's launches: those of its own (the ablation's K1)
+        # and the fused launches whose grid ran its body
+        k["launches_by_path"] = by_path(k["name"])
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] != FUSED:
+            k["standalone_launches"] = k["launches"]
+            k["launches_in_fused_by_path"] = by_path(k["name"] + IN_FUSED)
+            k["launches"] += sum(k["launches_in_fused_by_path"].values())
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was never launched on a main path")
         k["max_abs_err"] = max(k["max_abs_err"],
                                serve["class_errs"][k["name"]])
     k4 = serve.pop("k4")

@@ -15,7 +15,12 @@ into three width classes by their table's contents:
 Each class kernel is hand-written CUDA (``csrc/decode_gather.cu``) with
 a plain PyTorch twin beside it (``*_plain``).  The wrappers dispatch on
 the tensors' device: a CPU tensor goes to the twin, a CUDA tensor to the
-kernel (or the call raises); nothing falls back.
+kernel (or the call raises); nothing falls back.  The engines do not
+launch the classes one by one: ``decode_classes`` covers the three
+classes of a run with ONE launch (the same three bodies, a block picks
+its class), raw as the class kernels write it or exact (the salt of K2
+and K3 left out in the kernel); ``gather32``, ``gather16`` and ``zero``
+stay as entries of their own for the ablation and the kernel checks.
 
 Two engines run the class kernels.  ``ImageDecodeEngine`` decodes a
 whole stream's packed image and keeps the reference package's
@@ -345,16 +350,22 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: every tensor must be 16-byte aligned")
 
 
-def _gather(name, fn, plain, words, vidx, tab, n, salt, out):
-    rows, n_out = vidx.shape
-    out = _check_common(name, n, salt, rows, out, n_out)
-    if vidx.dtype != torch.uint8:
-        raise ValueError(f"{name}: vidx must be uint8, got {vidx.dtype}")
+def _check_gather(name, words, vidx, tab, n):
+    rows = vidx.shape[0]
+    if vidx.dtype != torch.uint8 or vidx.dim() != 2:
+        raise ValueError(f"{name}: vidx must be (rows, n_out) uint8, got "
+                         f"{tuple(vidx.shape)} {vidx.dtype}")
     if tab.dtype != torch.int32 or tuple(tab.shape) != (rows, words):
         raise ValueError(f"{name}: tab must be ({rows}, {words}) int32, got "
                          f"{tuple(tab.shape)} {tab.dtype}")
     if not (vidx.device == tab.device == n.device):
         raise ValueError(f"{name}: tensors on different devices")
+
+
+def _gather(name, fn, plain, words, vidx, tab, n, salt, out):
+    rows, n_out = vidx.shape
+    out = _check_common(name, n, salt, rows, out, n_out)
+    _check_gather(name, words, vidx, tab, n)
     if vidx.device.type == "cpu":
         out.copy_(plain(vidx, tab, n, salt))
         return out
@@ -414,20 +425,118 @@ def zero(n, salt, n_out: int = N_OUT, out=None):
     return out
 
 
+def decode_classes_plain(n0, cls16, cls32, salt, exact: bool = False,
+                         n_out: int = N_OUT):
+    """The fused class launch in plain PyTorch: the three twins written
+    into one buffer in engine order (zero, u16, i32).  ``exact`` leaves
+    the salt of K2 and K3 out (their twins run with salt 0; K1's output
+    does not depend on its salt)."""
+    s = torch.zeros_like(salt) if exact else salt
+    parts = []
+    if n0 is not None and n0.shape[0]:
+        parts.append(zero_plain(n0, s, n_out))
+    if cls16 is not None and cls16[2].shape[0]:
+        parts.append(gather16_plain(*cls16, s))
+    if cls32 is not None and cls32[2].shape[0]:
+        parts.append(gather32_plain(*cls32, salt))
+    if not parts:
+        return torch.empty((0, n_out), dtype=torch.int32, device=salt.device)
+    return torch.cat(parts)
+
+
+def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
+                   n_out: int = N_OUT, out=None):
+    """One engine run over the three width classes: ``n0`` (R0,) int32 of
+    the zero class, ``cls16`` and ``cls32`` the (vidx, tab, n) of the u16
+    and i32 classes; a class may be None or have no rows.  Returns the
+    (R0 + R16 + R32, n_out) int32 buffer in engine order (zero, u16,
+    i32).  Raw (``exact`` False) is the class kernels' contract: K2 and
+    K3 leave ``+ salt`` on valid lanes; ``exact`` True leaves it out.  On
+    a CUDA device this is ONE launch of ``dint_decode_classes`` (or the
+    call raises); on the CPU, ``decode_classes_plain``."""
+    name = "decode_classes"
+    dev = salt.device
+    if n_out not in _N_OUT_OK:
+        raise ValueError(f"{name}: n_out {n_out} not in {_N_OUT_OK}")
+    if salt.dtype != torch.int64 or salt.numel() != 1:
+        raise ValueError(f"{name}: salt must be a 1-element int64 tensor")
+    # the classes that have rows, in engine order: (body, tensors)
+    classes = []
+    if n0 is not None and n0.shape[0]:
+        classes.append(("K3_zero", (n0,)))
+    for body, words, cls in (("K2_gather16", TABLE_CLS // 2, cls16),
+                             ("K1_gather32", TABLE_CLS, cls32)):
+        if cls is None or cls[2].shape[0] == 0:
+            continue
+        _check_gather(name, words, *cls)
+        if cls[0].shape[1] != n_out:
+            raise ValueError(f"{name}: vidx has {cls[0].shape[1]} lanes a "
+                             f"row, n_out is {n_out}")
+        classes.append((body, tuple(cls)))
+    rows = {"K3_zero": 0, "K2_gather16": 0, "K1_gather32": 0}
+    for body, tensors in classes:
+        n = tensors[-1]
+        if n.dtype != torch.int32 or n.dim() != 1 or n.device != dev:
+            raise ValueError(f"{name}: n must be (rows,) int32 on {dev}, got "
+                             f"{tuple(n.shape)} {n.dtype} on {n.device}")
+        rows[body] = n.shape[0]
+    total = sum(rows.values())
+    if out is None:
+        out = torch.empty((total, n_out), dtype=torch.int32, device=dev)
+    elif (out.dtype != torch.int32 or tuple(out.shape) != (total, n_out)
+          or out.device != dev):
+        raise ValueError(f"{name}: out must be ({total}, {n_out}) int32 on "
+                         f"{dev}")
+    if dev.type == "cpu":
+        out.copy_(decode_classes_plain(n0, cls16, cls32, salt, exact, n_out))
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if total == 0:
+        return out
+    _check_cuda(name, salt, out, *(t for _, ts in classes for t in ts))
+    ptr = {body: [t.data_ptr() for t in ts] for body, ts in classes}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = cuda_ext.lib(_LIB).dint_decode_classes(
+        *ptr.get("K3_zero", [None]), rows["K3_zero"],
+        *ptr.get("K2_gather16", [None] * 3), rows["K2_gather16"],
+        *ptr.get("K1_gather32", [None] * 3), rows["K1_gather32"],
+        salt.data_ptr(), out.data_ptr(), n_out, int(bool(exact)), stream,
+    )
+    cuda_ext.check(_LIB, "dint_decode_classes", rc)
+    decode_classes.launches += 1
+    for body, _ in classes:
+        decode_classes.bodies[body] += 1
+    return out
+
+
 gather32.launches = 0
 gather16.launches = 0
 zero.launches = 0
+decode_classes.launches = 0
+# fused launches whose grid held rows of each class body
+decode_classes.bodies = {"K1_gather32": 0, "K2_gather16": 0, "K3_zero": 0}
 
-KERNELS = {"K1_gather32": gather32, "K2_gather16": gather16, "K3_zero": zero}
+KERNELS = {"K1_gather32": gather32, "K2_gather16": gather16, "K3_zero": zero,
+           "K123_decode_classes": decode_classes}
 
 
 def reset_launch_counts() -> None:
     for w in KERNELS.values():
         w.launches = 0
+    for k in decode_classes.bodies:
+        decode_classes.bodies[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
+    """Launches of each wrapper's kernel: K1-K3 count their stand-alone
+    launches only; the engines' runs count under the fused launch."""
     return {k: w.launches for k, w in KERNELS.items()}
+
+
+def fused_body_counts() -> Dict[str, int]:
+    """Per class body, the fused launches whose grid held rows of it."""
+    return dict(decode_classes.bodies)
 
 
 # ---------------------------------------------------------------------------
@@ -542,8 +651,9 @@ def _default_row_tile(rows: int) -> int:
 
 class _ClassEngine:
     """Uploads the width classes (class-major engine rows: zero, u16,
-    i32, each padded to the row tile) and runs the class kernels over
-    them: K1-K3 on a CUDA device, their plain twins on the CPU."""
+    i32, each padded to the row tile) and runs the class kernels' bodies
+    over them, one fused launch a run (``decode_classes``) on a CUDA
+    device, the plain twins on the CPU."""
 
     def _upload(self, parts, row_tile: int) -> None:
         """``parts``: (mode, vidx (Rc, N_OUT) u8, tab (Rc, words) u32,
@@ -576,23 +686,20 @@ class _ClassEngine:
             base += padded
         self.rows = base
         self._cls_bases = {c.mode: c.base for c in self._classes}
+        # the fused launch writes the classes in this order
+        assert [c.mode for c in self._classes] == [0, 16, 32]
 
-    def _run(self, salt: torch.Tensor) -> torch.Tensor:
-        """Raw outputs of every class for one run, written into one
-        (rows, N_OUT) int32 buffer in engine row order."""
-        buf = torch.empty((self.rows, N_OUT), dtype=torch.int32,
-                          device=self.device)
-        for c in self._classes:
-            if not c.rows:
-                continue
-            o = buf[c.base : c.base + c.rows]
-            if c.mode == 0:
-                zero(c.n, salt, N_OUT, out=o)
-            elif c.mode == 16:
-                gather16(c.vidx, c.tab, c.n, salt, out=o)
-            else:
-                gather32(c.vidx, c.tab, c.n, salt, out=o)
-        return buf
+    def _run(self, salt: torch.Tensor, exact: bool = False) -> torch.Tensor:
+        """Outputs of every class for one run, in one (rows, N_OUT) int32
+        buffer in engine row order, from one fused launch: raw (K2 and K3
+        leave ``+ salt`` on valid lanes), or exact."""
+        c0, c16, c32 = self._classes
+        return decode_classes(
+            c0.n,
+            (c16.vidx, c16.tab, c16.n) if c16.rows else None,
+            (c32.vidx, c32.tab, c32.n) if c32.rows else None,
+            salt, exact, N_OUT,
+        )
 
     def _salt(self, value: int) -> torch.Tensor:
         return torch.full((1,), value & _MASK, dtype=torch.int64,
@@ -601,18 +708,11 @@ class _ClassEngine:
     def decode(self, salt=0) -> torch.Tensor:
         """Exact (rows, N_OUT) output (u32 bits in int32) of one run with
         ``salt`` (an int, or a (1,) int64 device tensor holding a u32
-        value, which a chain of runs never fetches): the salt the u16
-        and zero classes add is removed."""
-        given = isinstance(salt, torch.Tensor)
-        s = salt if given else self._salt(salt)
-        buf = self._run(s)
-        if given or salt & _MASK:
-            for c in self._classes:
-                if c.rows and c.mode != 32:
-                    o = buf[c.base : c.base + c.rows]
-                    u = (o.to(torch.int64) - s) & _MASK
-                    o.copy_(_to_i32(torch.where(_valid(c.n, N_OUT), u, 0)))
-        return buf
+        value, which a chain of runs never fetches): the fused launch
+        leaves the salt of the u16 and zero classes out, so no pass over
+        the output follows it."""
+        s = salt if isinstance(salt, torch.Tensor) else self._salt(salt)
+        return self._run(s, exact=True)
 
     def decode_all(self, salt=0) -> torch.Tensor:
         """(engine rows, N_OUT) int32 holding the u32 outputs, in engine
@@ -623,8 +723,8 @@ class _ClassEngine:
 
 class ImageDecodeEngine(_ClassEngine):
     """Device runner over a DecodeImage: uploads the class arrays and
-    runs the class kernels with the reference package's chained, salted
-    protocol."""
+    runs them (one fused launch a run) with the reference package's
+    chained, salted protocol."""
 
     def __init__(self, img: DecodeImage, row_tile: int | None = None,
                  device="cuda"):
@@ -767,9 +867,9 @@ class LocalDecodeEngine(_ClassEngine):
 
     def decode_docids_all(self, unit_bases: np.ndarray,
                           salt: int = 0) -> torch.Tensor:
-        """Decode AND rebuild docids: the class kernels, then the per-row
-        prefix sum (_docid_rebuild) with hosted carries (rows of one unit
-        chain through row_carry; unit_bases come from block_maxs).
+        """Decode AND rebuild docids: the fused class launch, then the
+        per-row prefix sum (_docid_rebuild) with hosted carries (rows of
+        one unit chain through row_carry; unit_bases come from block_maxs).
         Returns (engine rows, N_OUT) int32 holding u32 docids."""
         nb = (np.asarray(unit_bases, np.uint32)[self.plan.unit_id]
               .astype(np.int64) + self.row_carry()) & _MASK

@@ -13,7 +13,8 @@ bit-exact against the portable flat gather (``decode_local.gather_flat``)
 before it is timed.  The variants:
 
   v_ship         the shipping engine (``LocalDecodeEngine.decode_all``:
-                 the rows split into width classes, K1-K3)
+                 the rows split into width classes, K1-K3's bodies in
+                 one fused launch that leaves the salt out)
   v_gather32     K1 alone over every plan-order row (u8 vidx, full i32
                  tables): the plain gather the one-hot forms stand
                  against, at the same rows and table width

@@ -141,8 +141,87 @@ def test_wrappers_check_their_inputs():
     t_dl.reset_launch_counts()
     t_dl.gather32(v, t32, nn, _salt(0))
     t_dl.zero(nn, _salt(0))
+    t_dl.decode_classes(nn, (v, t16, nn), (v, t32, nn), _salt(0))
     assert t_dl.launch_counts() == {
-        "K1_gather32": 0, "K2_gather16": 0, "K3_zero": 0}
+        "K1_gather32": 0, "K2_gather16": 0, "K3_zero": 0,
+        "K123_decode_classes": 0}
+    assert set(t_dl.fused_body_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# The fused class launch (its plain version: the path a CPU tensor takes)
+# ---------------------------------------------------------------------------
+
+
+def _edge_classes():
+    vidx, tab16, tab32, n = edge_inputs()
+    v, nn = torch.from_numpy(vidx), torch.from_numpy(n)
+    return (nn, (v, torch.from_numpy(tab16.view(np.int32)), nn),
+            (v, torch.from_numpy(tab32.view(np.int32)), nn), n)
+
+
+@pytest.mark.parametrize("salt", SALTS)
+def test_fused_raw_matches_pallas_split(reference_outputs, salt):
+    """Raw flag: the three class outputs of the reference's split path in
+    engine order (zero, u16, i32), K2's and K3's salt left on."""
+    n0, c16, c32, n = _edge_classes()
+    got = t_dl.decode_classes(n0, c16, c32, _salt(salt))
+    assert got.dtype == torch.int32 and got.shape == (3 * ROWS, N_OUT)
+    o0, o16, o32 = reference_outputs[salt]
+    want = np.concatenate([_raw_from_exact(o0, n, salt),
+                           _raw_from_exact(o16, n, salt), o32])
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+@pytest.mark.parametrize("salt", SALTS)
+def test_fused_exact_matches_pallas_split(reference_outputs, salt):
+    """Exact flag: the reference's decode (the salt removed, 0 past n)."""
+    n0, c16, c32, _ = _edge_classes()
+    got = t_dl.decode_classes(n0, c16, c32, _salt(salt), exact=True)
+    np.testing.assert_array_equal(
+        _u32(got), np.concatenate(reference_outputs[salt]))
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["raw", "exact"])
+@pytest.mark.parametrize("present", [(0,), (16,), (32,), (0, 16), (0, 32),
+                                     (16, 32)],
+                         ids=lambda p: "classes_" + "_".join(map(str, p)))
+def test_fused_with_empty_classes(reference_outputs, present, exact):
+    """A class may be None or have no rows: the others keep their order.
+    The u16 and i32 classes get row counts that are no multiple of a
+    kernel block's rows (61 and 59)."""
+    salt = 0x9E3779B9
+    n0, c16, c32, n = _edge_classes()
+    c16 = tuple(t[:61] for t in c16)
+    c32 = tuple(t[:59] for t in c32)
+    o0, o16, o32 = reference_outputs[salt]
+    want = {0: o0 if exact else _raw_from_exact(o0, n, salt),
+            16: (o16 if exact else _raw_from_exact(o16, n, salt))[:61],
+            32: o32[:59]}
+    empty16 = tuple(t[:0] for t in c16)
+    got = t_dl.decode_classes(
+        n0 if 0 in present else None,
+        c16 if 16 in present else empty16,
+        c32 if 32 in present else None, _salt(salt), exact=exact)
+    np.testing.assert_array_equal(
+        _u32(got), np.concatenate([want[m] for m in present]))
+
+
+def test_fused_checks_its_inputs():
+    n0, c16, c32, _ = _edge_classes()
+    with pytest.raises(ValueError):  # the classes swapped: table widths
+        t_dl.decode_classes(n0, c32, c16, _salt(0))
+    with pytest.raises(ValueError):
+        t_dl.decode_classes(n0.to(torch.int64), c16, c32, _salt(0))
+    with pytest.raises(ValueError):
+        t_dl.decode_classes(n0, c16, c32, torch.tensor([1, 2]))
+    with pytest.raises(ValueError):
+        t_dl.decode_classes(n0, c16, c32, _salt(0),
+                            out=torch.empty((ROWS, N_OUT), dtype=torch.int32))
+    out = torch.empty((3 * ROWS, N_OUT), dtype=torch.int32)
+    assert t_dl.decode_classes(n0, c16, c32, _salt(3), out=out) is out
+    none = t_dl.decode_classes(None, None, None, _salt(3))
+    assert none.shape == (0, N_OUT)
 
 
 # ---------------------------------------------------------------------------
@@ -256,3 +335,75 @@ def test_engine_default_device_raises_without_cuda(images, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         t_dl.ImageDecodeEngine(_port_image(jimg))
+
+
+def _decode_by_passes(eng, salt):
+    """``_ClassEngine.decode`` as it was before the fused launch: one
+    stand-alone class kernel a class, then int64 passes that take the
+    salt of the u16 and zero classes off again."""
+    given = isinstance(salt, torch.Tensor)
+    s = salt if given else eng._salt(salt)
+    buf = torch.empty((eng.rows, N_OUT), dtype=torch.int32)
+    for c in eng._classes:
+        if not c.rows:
+            continue
+        o = buf[c.base : c.base + c.rows]
+        if c.mode == 0:
+            t_dl.zero(c.n, s, N_OUT, out=o)
+        elif c.mode == 16:
+            t_dl.gather16(c.vidx, c.tab, c.n, s, out=o)
+        else:
+            t_dl.gather32(c.vidx, c.tab, c.n, s, out=o)
+        if c.mode != 32:
+            u = (o.to(torch.int64) - s) & MASK
+            o.copy_(t_dl._to_i32(torch.where(t_dl._valid(c.n, N_OUT), u, 0)))
+    return buf
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
+@pytest.mark.parametrize("salt", [0, 1, 0x7FFFFFFF, 0x80000000, 0x9E3779B9,
+                                  0xFFFFFFFF])
+def test_engine_decode_is_exact_without_passes(images, salt, as_tensor):
+    """decode (one exact fused launch) equals the stand-alone kernels
+    followed by the salt-removing passes, for int and tensor salts, the
+    sign bit included, and does not depend on the salt."""
+    jimg, _ = images["multi_packed_dint"]
+    eng = t_dl.ImageDecodeEngine(_port_image(jimg), device="cpu")
+    s = _salt(salt) if as_tensor else salt
+    got = eng.decode(s)
+    assert torch.equal(got, _decode_by_passes(eng, s))
+    assert torch.equal(got, eng.decode(0))
+    assert torch.equal(eng._run(_salt(0)), got)  # raw at salt 0 is exact
+
+
+def _subset_image(jimg, keep):
+    """``jimg`` with only the width classes of ``keep`` (their segments
+    too): an image with empty classes."""
+    f = dataclasses.asdict(jimg)
+    for mode, names in ((0, ("n0",)), (16, ("vidx16", "tab16", "n16")),
+                        (32, ("vidx32", "tab32", "n32"))):
+        if mode not in keep:
+            for k in names:
+                f[k] = f[k][:0]
+    seg = np.isin(f["seg_cls"], list(keep))
+    for k in list(f):
+        if k.startswith("seg_"):
+            f[k] = f[k][seg]
+    return type(jimg)(**f)
+
+
+@pytest.mark.parametrize("keep", [(16,), (32,), (0,), (0, 32), (16, 32)],
+                         ids=lambda k: "classes_" + "_".join(map(str, k)))
+def test_engine_with_empty_classes_matches_reference(images, keep):
+    """A one-class image and images with one class empty: outputs and
+    both chain salts equal the reference engine's."""
+    jimg, _ = images["single_rect_dint"]
+    sub = _subset_image(jimg, keep)
+    jeng = j_dl.ImageDecodeEngine(sub)
+    teng = t_dl.ImageDecodeEngine(_port_image(sub), device="cpu")
+    assert teng.rows == sum(c.rows for c in teng._classes) > 0
+    assert [c.rows > 0 for c in teng._classes] == [m in keep
+                                                   for m in (0, 16, 32)]
+    np.testing.assert_array_equal(_u32(teng.decode_all(0x80000001)),
+                                  np.asarray(jeng.decode_all()))
+    assert int(teng.decode_chain(3)) == int(np.asarray(jeng.decode_chain(3)))

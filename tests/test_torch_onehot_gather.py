@@ -188,3 +188,132 @@ def test_row_count_is_checked_as_in_the_reference(fn, rows):
     with pytest.raises(ValueError, match="multiple"):
         getattr(t_dp, fn)(z, z, torch.zeros(rows, dtype=torch.int32),
                           torch.zeros(1, dtype=torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's shared-memory operand layout (its Python mirror)
+# ---------------------------------------------------------------------------
+
+MASK = 0xFFFFFFFF
+
+
+def test_selector_layout_constants():
+    """What csrc/onehot_gather.cu states: 128-byte core matrices, 16
+    chunks of entries a row group, 64 KiB a row's selector."""
+    assert (t_dp.SEL_LBO, t_dp.SEL_SBO) == (128, 2048)
+    assert (t_dp.PLANE_LBO, t_dp.PLANE_SBO) == (128, 2048)
+    assert t_dp.SEL_BYTES == 65536 and t_dp.PLANE_BYTES == 2048
+    assert t_dp.sel_offset(0, 0) == 0 and t_dp.sel_offset(0, 15) == 15
+    assert t_dp.sel_offset(1, 0) == 16 and t_dp.sel_offset(0, 16) == 128
+    assert t_dp.sel_offset(8, 0) == 2048
+    assert t_dp.sel_offset(255, 255) == 65535
+
+
+def test_selector_offset_is_a_bijection():
+    j, d = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    off = t_dp.sel_offset(j, d).ravel()
+    assert off.min() == 0 and off.max() == t_dp.SEL_BYTES - 1
+    assert np.unique(off).shape[0] == t_dp.SEL_BYTES
+    v, d = np.meshgrid(np.arange(8), np.arange(256), indexing="ij")
+    off = t_dp.plane_offset(v, d).ravel()
+    assert np.unique(off).shape[0] == t_dp.PLANE_BYTES
+    assert off.max() == t_dp.PLANE_BYTES - 1
+
+
+def _edge_rows(seed=17):
+    """(vidx, table u32, n): random rows, then rows that repeat one vidx
+    256 times, indices outside [0, 256), n = 0, 1, 256 and table words
+    with the sign bit set."""
+    rng = np.random.default_rng(seed)
+    R = 12
+    vidx = rng.integers(0, 256, (R, 256)).astype(np.int32)
+    vidx[0] = 0
+    vidx[1] = 255
+    vidx[2] = 77
+    vidx[3, 5], vidx[3, 250], vidx[4, 7], vidx[4, 0] = 300, 256, -1, -(2**31)
+    vidx[5] = 2**31 - 1  # selects nothing anywhere
+    vidx[6] = np.arange(256)
+    vidx[7] = np.arange(256)[::-1]
+    table = rng.integers(0, 1 << 32, (R, 256), dtype=np.uint64).astype(
+        np.uint32)
+    table[:, ::7] |= 0x80000000
+    n = rng.integers(0, 257, R).astype(np.int32)
+    n[:8] = 256
+    n[8], n[9] = 0, 1
+    return vidx, table, n
+
+
+def _scatter(vidx_row):
+    """The selector buffer after the kernel's scatter of one row, and
+    the offsets it set (an out-of-range vidx sets nothing)."""
+    j = torch.arange(256)
+    ok = (vidx_row >= 0) & (vidx_row < 256)
+    off = t_dp.sel_offset(j[ok], vidx_row[ok].to(torch.int64))
+    buf = torch.zeros(t_dp.SEL_BYTES, dtype=torch.int32)
+    buf[off] = 1
+    return buf, off
+
+
+def _selector_from_tiles(buf):
+    """A (256 outputs x 256 entries) as the 4 x 8 descriptors read it."""
+    a = torch.empty((256, 256), dtype=buf.dtype)
+    for mt in range(256 // t_dp.WGMMA_M):
+        for ks in range(256 // t_dp.WGMMA_K):
+            a[64 * mt : 64 * mt + 64, 32 * ks : 32 * ks + 32] = t_dp.wgmma_tile(
+                buf, t_dp.sel_tile_start(mt, ks), t_dp.SEL_LBO, t_dp.SEL_SBO,
+                t_dp.WGMMA_M)
+    return a
+
+
+@pytest.mark.parametrize("row", range(12))
+def test_selector_scattered_and_read_back_by_tiles(row):
+    vidx, _, _ = _edge_rows()
+    v = torch.from_numpy(vidx[row])
+    buf, off = _scatter(v)
+    want = (v[:, None] == torch.arange(256)[None, :]).to(torch.int32)
+    assert torch.equal(_selector_from_tiles(buf), want)
+    # two outputs never share a byte, so the clear restores the zeros
+    assert off.unique().shape[0] == off.shape[0] == int(want.sum())
+    buf[off] = 0
+    assert not buf.any()
+
+
+def _row_as_the_kernel_computes_it(vidx_row, tab_row, n, salt):
+    """One row through the kernel's data path in plain torch: scatter,
+    plane tile, 32 tile products out^T += A_tile . B_tile^T, epilogue."""
+    sel, _ = _scatter(vidx_row)
+    w = (tab_row.to(torch.int64) + salt) & MASK
+    planes = torch.zeros(t_dp.PLANE_BYTES, dtype=torch.int32)
+    d = torch.arange(256)
+    for v in range(4):
+        planes[t_dp.plane_offset(v, d)] = (((w >> (8 * v)) & 255)
+                                           - 128).to(torch.int32)
+    acc = torch.zeros((256, 8), dtype=torch.int32)
+    for mt in range(4):
+        for ks in range(8):
+            a = t_dp.wgmma_tile(sel, t_dp.sel_tile_start(mt, ks), t_dp.SEL_LBO,
+                                t_dp.SEL_SBO, t_dp.WGMMA_M)
+            b = t_dp.wgmma_tile(planes, t_dp.plane_tile_start(ks),
+                                t_dp.PLANE_LBO, t_dp.PLANE_SBO, 8)
+            acc[64 * mt : 64 * mt + 64] += a @ b.T
+    assert not acc[:, 4:].any()  # the padding columns of B
+    byte = (acc[:, :4].to(torch.int64) + 128) & 255
+    word = (byte[:, 0] | (byte[:, 1] << 8) | (byte[:, 2] << 16)
+            | (byte[:, 3] << 24))
+    out = torch.where(torch.arange(256) < n, (word - salt) & MASK, 0)
+    return out
+
+
+@pytest.mark.parametrize("salt", (0, 1, 0x9E3779B9, 0xFFFFFFFF))
+def test_transposed_product_from_tiles_matches_plain_version(salt):
+    vidx, table, n = _edge_rows()
+    want = t_dl.decode_gather_rows(*_args(vidx, table, n, salt))
+    tv, tt = torch.from_numpy(vidx), torch.from_numpy(table.view(np.int32))
+    got = torch.stack([
+        _row_as_the_kernel_computes_it(tv[r], tt[r], int(n[r]), salt)
+        for r in range(vidx.shape[0])])
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), _u32(want))
+    assert _u32(want)[5, 0] == (0x80808080 - salt) & MASK
+    flat = t_dl.gather_flat(tv[6:8], tt[6:8], torch.from_numpy(n[6:8]),
+                            torch.tensor([salt], dtype=torch.int64))
+    assert torch.equal(want[6:8], flat)
