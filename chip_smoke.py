@@ -3,7 +3,7 @@
 gather decode, the whole bench (gather and ladder engines, store probe),
 the one-hot kernel ablation and fused ranked query serving.
 
-    python3 chip_smoke.py [--seed 2026] [--out FILE]
+    python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
 
 Run from the root of a checkout.  Phases, each fatal on failure:
 
@@ -41,9 +41,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    printed with the card in it; a torch.profiler trace of 50 chained
    ladder runs (device busy time against the bytes bound);
 6. K5 against its plain version under ``torch.equal`` at the bench
-   output size and at one tile, the same three salts; its time,
-   ``fill_``'s time on the same bytes and the bound; the probe's chain
-   salt on the card against the plain version's on the host;
+   output size, at one tile, at tile heights that are no power of two
+   and, through its C entry, with a last tile cut short, the same three
+   salts; its time in turns with ``fill_`` on the same bytes (and with
+   an earlier body's, ``--k5-old SOURCE``) and the bound; the probe's
+   chain salt on the card against the plain version's on the host;
 7. ablation path: the per-unit plan of the single_rect stream,
    ``tools.kernel_ablate.run`` over it (every variant checked against
    ``gather_flat`` on the whole plan, then timed under the salted
@@ -62,21 +64,38 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 9. serve path: the index loaded, ``TermDecoder(device="cuda")`` and a
    ``DeviceServingStore`` over every term (K1-K3 decode the index once),
    then the log through ``tools.queries``' device path: ``ranked_or``
-   with k 10 (fused store, K4), one warm-up and 10 timed passes, and
-   ``and``/``or`` counts; launch counts reset just before and read
-   just after; K1-K3 against their twins, and the fused launch against
-   its plain version in both flags, under ``torch.equal`` on the class
-   tensors of the docid and freq engines that path built;
+   with k 10 (fused store, K4), then ``wand`` and ``maxscore`` (the same
+   store after the Block-Max survival pass on the card dropped the
+   blocks that cannot reach a top-10), one warm-up and 10 timed passes
+   each, and ``and``/``or`` counts; launch counts reset just before and
+   read just after, K4's also per op (once a bucket a pass); K1-K3
+   against their twins, and the fused launch against its plain version
+   in both flags, under ``torch.equal`` on the class tensors of the
+   docid and freq engines that path built;
 10. K4 against its plain version under ``torch.equal`` at every bucket
-    shape of the log and on an edge batch, each shape timed;
+    shape of the log, pruned and unpruned, and on an edge batch, each
+    unpruned shape timed;
 11. exactness: every term's docids and freqs decoded on the card equal
     the collection; every query's top-10 scores (and the scores of
-    the returned docids) equal a numpy oracle over the collection files
-    within rtol 2e-4, atol 1e-5; the and/or counts equal numpy's;
-12. a torch.profiler trace of 3 serving passes.
+    the returned docids), unpruned and pruned, equal a numpy oracle
+    over the collection files within rtol 2e-4, atol 1e-5, with as many
+    results; pruning removed some block; the and/or counts equal
+    numpy's;
+12. the survival pass on the card, on the log's events, against a
+    float64 numpy replay of the pointwise bound (fatal if the card
+    prunes a block the replay keeps) and against the same function on
+    the CPU (differing mask bytes counted), with the metadata pass's
+    parts timed;
+13. the host engine on the log's first 32 queries, one pass: ``wand``
+    and ``maxscore`` equal the device engine's top-10, ``ranked_and``
+    the oracle's sums over the device engine's AND members, the lazy
+    ``and``/``or`` the device counts; each op once through
+    ``tools.queries.run_op``;
+14. torch.profiler traces of 3 serving passes, unpruned and pruned.
 
-Prints the stats records, the card line, one ``{"kernels": [...]}``
-line (K1-K7 and the fused class launch) and, last, ``{"ok": true,
+Prints the stats records (one ``{"serve_pruned": ...}`` line among
+them), the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
+fused class launch) and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
 no card or no checkout around it.
 """
@@ -111,6 +130,10 @@ MASK = 0xFFFFFFFF
 SERVE_TYPE = "multi_packed_dint"  # the index of bench_artifacts/queries.json
 SERVE_RUNS = 10  # timed serving passes after one warm-up
 BOOL_RUNS = 3
+RANKED_OPS = ("ranked_or", "wand", "maxscore")  # through the fused store
+RANKED_AGAIN = "ranked_or_again"  # ranked_or timed once more after them
+HOST_QUERIES = 32  # the log's first queries, through the host engine
+HOST_OPS = ("wand", "maxscore", "ranked_and", "and", "or")
 QUERIES = 500
 QUERY_SEED = 7  # scripts/ab_queries.py's query log
 TOPK = 10
@@ -701,34 +724,87 @@ def profile_ladder(stream: str, dict_file: str, card_name: str,
     return prof
 
 
-def check_k5(num_integers: int, card_name: str) -> dict:
-    """Phase 6: K5 against its plain version at the bench output size
-    and at one tile, its chain against the plain chain, and its times;
-    returns its kernels-line entry."""
+K5_SHAPES = ((1024, 1024), (3000, 1000), (1001, 7), (96, 96))  # whole tiles
+K5_RAGGED = ((2500, 1024), (37, 1024), (1000, 7))  # a last tile cut short
+
+
+def build_k5_variant(src: str):
+    """Compile another K5 source (same C entry ``dint_store_tile``) into
+    the cache directory and return its entry as ``fn(salt, out, rows,
+    row_tile)``: for timing an earlier body beside the shipped one."""
+    import ctypes
+
     import torch
 
+    from dint_tpu_torch.kernels import cuda_ext
+
+    so = os.path.join(CACHE, "libk5variant.so")
+    subprocess.run([cuda_ext.nvcc(), *cuda_ext.NVCC_FLAGS, "-o", so, src],
+                   check=True)
+    entry = ctypes.CDLL(so).dint_store_tile
+    entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_void_p]
+
+    def run(salt, out, rows, row_tile):
+        rc = entry(salt.data_ptr(), out.data_ptr(), rows, row_tile,
+                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"{src}: launch failed with CUDA error {rc}")
+
+    return run
+
+
+def check_k5(num_integers: int, card_name: str, old_src=None) -> dict:
+    """Phase 6: K5 against its plain version at the bench output size,
+    at one tile, at tile heights that are no power of two and (through
+    its C entry; the wrapper keeps whole tiles) with a last tile cut
+    short; its chain against the plain chain; its time in turns with
+    ``fill_`` on the same bytes (and with the body of ``old_src``, when
+    given).  Returns its kernels-line entry."""
+    import torch
+
+    from dint_tpu_torch.kernels import cuda_ext
     from dint_tpu_torch.kernels import store_probe as sp
 
     rows = sp.probe_rows(num_integers * 4)
+    entry_c = cuda_ext.lib("libdintprobe.so").dint_store_tile
+    stream = torch.cuda.current_stream().cuda_stream
     worst = 0
-    for r in (rows, 1024):
+    for r, rt in ((rows, 1024),) + K5_SHAPES + K5_RAGGED:
         for s in SALTS:
             st = sp.salt_tensor(s, "cuda")
-            got, want = sp.store_tile(st, r), sp.store_tile_plain(st, r)
+            if r % rt:
+                got = torch.full((r, sp.ROW_LANES), -7, dtype=torch.int32,
+                                 device="cuda")
+                rc = entry_c(st.data_ptr(), got.data_ptr(), r, rt, stream)
+                cuda_ext.check("libdintprobe.so", "dint_store_tile", rc)
+            else:
+                got = sp.store_tile(st, r, rt)
+            want = sp.store_tile_plain(st, r, rt)
             torch.cuda.synchronize()
             worst = max(worst, u32_err(got, want))
             if not torch.equal(got, want):
                 fail(f"K5 disagrees with its plain version at {r} rows, "
-                     f"salt {s:#x}")
+                     f"tiles of {rt}, salt {s:#x}")
     on_card = int(sp.probe_chain(2048, 1024, 3, torch.device("cuda")).item())
     on_host = int(sp.probe_chain(2048, 1024, 3, torch.device("cpu")).item())
     if on_card != on_host:
         fail(f"probe chain salt {on_card} on the card, {on_host} on the host")
-    log(f"K5 equals its plain version at {rows} and 1024 rows; chain salt "
-        f"{on_card & MASK:#x} on both")
+    log(f"K5 equals its plain version at {rows} rows, {K5_SHAPES} and "
+        f"ragged {K5_RAGGED}; chain salt {on_card & MASK:#x} on both")
     flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
     st = sp.salt_tensor(0x9E3779B9, "cuda")
     buf = torch.empty((rows, sp.ROW_LANES), dtype=torch.int32, device="cuda")
+    fns = {"K5": lambda: sp.store_tile(st, rows, out=buf),
+           "fill_": lambda: buf.fill_(7)}
+    if old_src:
+        old = build_k5_variant(old_src)
+        old(st, buf, rows, 1024)
+        torch.cuda.synchronize()
+        if not torch.equal(buf, sp.store_tile_plain(st, rows)):
+            fail(f"{old_src} disagrees with K5's plain version")
+        fns["old"] = lambda: old(st, buf, rows, 1024)
+    ms = time_in_turns(fns, 50, flush, rounds=3)
     entry = {
         "name": "K5_store_tile",
         "route": "cuda",
@@ -737,17 +813,21 @@ def check_k5(num_integers: int, card_name: str) -> dict:
                     "_probe_fns :32)",
         "launches": 0,
         "max_abs_err": worst,
-        "ms": time_ms(lambda: sp.store_tile(st, rows, out=buf), 50, flush),
+        "ms": ms["K5"],
         "plain_ms": time_ms(lambda: sp.store_tile_plain(st, rows), 5, flush),
         **bound_entry(rows * sp.ROW_LANES * 4 + 4,
                       4 * rows * sp.ROW_LANES / INT32_OPS_PER_S * 1e3,
                       card_name),
-        "library_ms": time_ms(lambda: buf.fill_(7), 50, flush),
+        "library_ms": ms["fill_"],
         "rows": rows,
     }
-    log(f"K5 {entry['ms'] * 1e3:.1f} us, fill_ "
-        f"{entry['library_ms'] * 1e3:.1f} us, bound "
-        f"{entry['bound_ms'] * 1e3:.1f} us")
+    if old_src:
+        entry["old_body_ms"] = ms["old"]
+    log(f"K5 {entry['ms'] * 1e3:.2f} us, fill_ "
+        f"{entry['library_ms'] * 1e3:.2f} us"
+        + (f", the body of {old_src} {ms['old'] * 1e3:.2f} us"
+           if old_src else "")
+        + f", bound {entry['bound_ms'] * 1e3:.2f} us (in turns, 3 rounds)")
     return entry
 
 
@@ -981,7 +1061,8 @@ def drive_serve_path(paths, runs: int, bool_runs: int):
     """Phase 6, the serving main path as a user drives it on the card:
     load the index, wand data and log; decode the whole index once into
     a DeviceServingStore; run the log through tools.queries' device path
-    (ranked_or, then and/or).  Returns (state, {op: record},
+    (ranked_or, then wand and maxscore through the pruned fused store,
+    then and/or).  Returns (state, {op: record},
     {step: seconds})."""
     from dint_tpu_torch.index.dint_index import DintIndex
     from dint_tpu_torch.query import boolean, device_serve, ranked
@@ -1005,12 +1086,19 @@ def drive_serve_path(paths, runs: int, bool_runs: int):
     times.update({f"store_{k}": v for k, v in store.build_timings.items()})
     times.update({f"term_decoder_{k}_s": v for k, v in dec.timings.items()})
     recs = {}
-    for op, r in (("ranked_or", runs), ("and", bool_runs), ("or", bool_runs)):
+    # ranked_or once more after the pruned ops: the two unpruned timings
+    # bracket the pruned ones, so a drift of the host shows
+    for name, r in ([(op, runs) for op in RANKED_OPS + (RANKED_AGAIN,)]
+                    + [("and", bool_runs), ("or", bool_runs)]):
+        op = "ranked_or" if name == RANKED_AGAIN else name
+        k4_before = device_serve.block_copy.launches
         stats, shape, extra = qtool.run_op_device(index, dec, wdata, qs, op,
                                                   r, TOPK, store=store)
-        recs[op] = {"type": op, **stats, "runs": r,
+        recs[name] = {"type": op, **stats, "runs": r,
                     "queries_per_s": 1e6 / stats["avg"],
-                    "batch_shape": "x".join(map(str, shape)), **extra}
+                    "batch_shape": "x".join(map(str, shape)), **extra,
+                    "k4_launches":
+                        device_serve.block_copy.launches - k4_before}
     for k, v in times.items():
         log(f"serve path: {k} {v:.2f}")
     state = {"index": index, "wdata": wdata, "queries": qs, "decoder": dec,
@@ -1126,11 +1214,37 @@ def oracle_topk(docs, freqs, norm, num_docs, q):
     return np.sort(sums)[::-1][:TOPK].astype(np.float32), d[starts], sums
 
 
+def check_topk(qs, oracle, out_s, out_d, what: str) -> float:
+    """Every query's top-k scores equal the oracle's, with as many
+    results, and the returned docids carry their scores; returns the
+    worst relative score error."""
+    worst = 0.0
+    for i, q in enumerate(qs):
+        want, ud, sums = oracle[i]
+        got = out_s[i]
+        if got.shape != want.shape or not np.allclose(got, want, rtol=RTOL,
+                                                      atol=ATOL):
+            fail(f"{what} query {i} {q}: scores {got} != oracle {want}")
+        pos = np.searchsorted(ud, out_d[i].astype(np.int64))
+        pos = np.minimum(pos, max(ud.shape[0] - 1, 0))
+        if got.size and not (np.array_equal(ud[pos], out_d[i])
+                             and np.allclose(sums[pos], got, rtol=RTOL,
+                                             atol=ATOL)):
+            fail(f"{what} query {i} {q}: returned docids do not carry "
+                 "their scores")
+        if want.size:
+            worst = max(worst, float(np.max(np.abs(got - want)
+                                             / np.maximum(np.abs(want),
+                                                          1e-30))))
+    return worst
+
+
 def check_serving(base: str, state):
-    """Phase 8: decoded lists, ranked top-k and boolean counts against
-    the collection files; returns a summary.  The lists checked are
-    every term's, as the store build decoded them on the card (the
-    decoder's cache)."""
+    """Phase 11: decoded lists, ranked top-k (unpruned, and pruned as
+    wand and maxscore serve it) and boolean counts against the
+    collection files; returns a summary.  The lists checked are every
+    term's, as the store build decoded them on the card (the decoder's
+    cache)."""
     from dint_tpu_torch.query import device_batch
 
     docs, freqs, num_docs = read_collection(base)
@@ -1143,25 +1257,17 @@ def check_serving(base: str, state):
                                     and np.array_equal(got_f[t], freqs[t]))]
     if bad:
         fail(f"terms {bad[:10]} decode wrong on the card")
-    out_s, out_d, _ = store.ranked_topk(qs, k=TOPK, prune=False)
     norm = np.asarray(state["wdata"].norm_lens, np.float32)
-    worst = 0.0
-    for i, q in enumerate(qs):
-        want, ud, sums = oracle_topk(docs, freqs, norm, num_docs, q)
-        got = out_s[i]
-        if got.shape != want.shape or not np.allclose(got, want, rtol=RTOL,
-                                                      atol=ATOL):
-            fail(f"query {i} {q}: scores {got} != oracle {want}")
-        pos = np.searchsorted(ud, out_d[i].astype(np.int64))
-        pos = np.minimum(pos, max(ud.shape[0] - 1, 0))
-        if got.size and not (np.array_equal(ud[pos], out_d[i])
-                             and np.allclose(sums[pos], got, rtol=RTOL,
-                                             atol=ATOL)):
-            fail(f"query {i} {q}: returned docids do not carry their scores")
-        if want.size:
-            worst = max(worst, float(np.max(np.abs(got - want)
-                                             / np.maximum(np.abs(want),
-                                                          1e-30))))
+    oracle = [oracle_topk(docs, freqs, norm, num_docs, q) for q in qs]
+    state["oracle"] = oracle
+    out_s, out_d, _ = store.ranked_topk(qs, k=TOPK, prune=False)
+    worst = check_topk(qs, oracle, out_s, out_d, "ranked_or")
+    out_s, out_d, pst = store.ranked_topk(qs, k=TOPK, prune=True,
+                                          lazy_cache=dec.lazy_cache)
+    worst_pruned = check_topk(qs, oracle, out_s, out_d, "pruned")
+    if not pst["blocks_kept"] < pst["blocks_total"]:
+        fail(f"pruning removed no block: {pst}")
+    state["pruned"] = (out_s, out_d)
     counts = {}
     for op in ("and", "or"):
         got = device_batch.boolean_count_batch(dec, qs, op)
@@ -1176,8 +1282,165 @@ def check_serving(base: str, state):
             if int(got[i]) != want.shape[0]:
                 fail(f"{op} query {i} {q}: {int(got[i])} != {want.shape[0]}")
         counts[op] = int(got.sum())
+        state[f"{op}_counts"] = got
     return {"queries": len(qs), "terms_checked": len(terms),
-            "max_rel_score_err": worst, "total_results": counts}
+            "max_rel_score_err": worst,
+            "max_rel_score_err_pruned": worst_pruned,
+            "blocks_kept": pst["blocks_kept"],
+            "blocks_total": pst["blocks_total"], "total_results": counts}
+
+
+def check_survival(state):
+    """The survival pass on the card, on the log's own events (tau
+    hinted from the store's tables, as the pruned serve path does):
+    against a float64 numpy replay of the pointwise bound (fail if the
+    card prunes a block the replay keeps; count what it keeps that the
+    replay prunes) and against the same function on the CPU (count the
+    differing mask bytes).  Also times the metadata pass's parts."""
+    import torch
+
+    from dint_tpu_torch.query import bmw_device, ranked
+
+    index, wdata, store = state["index"], state["wdata"], state["store"]
+    qs, cache = state["queries"], state["decoder"].lazy_cache
+    weighted = [ranked._query_weights(index, q) for q in qs]
+    multi = [qi for qi, w in enumerate(weighted) if len(w) != 1]
+    t = {}
+    t0 = time.perf_counter()
+    hints = [store.tau_from_tables(weighted[qi], TOPK) for qi in multi]
+    t["tau_hints_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_q, taus, P = bmw_device.plan_batch(
+        cache, index, wdata, [qs[qi] for qi in multi], TOPK, hints)
+    t["plan_s"] = time.perf_counter() - t0
+    dev_rows = [i for i, p in enumerate(per_q)
+                if p is not None and p[0] == "dev"]
+    rows = [per_q[i][2] for i in dev_rows]
+    t0 = time.perf_counter()
+    ev = bmw_device.build_events(rows, P)
+    t["event_build_s"] = time.perf_counter() - t0
+    tau = np.asarray([taus[i] for i in dev_rows], np.float64)
+    T = max(len(g) for g in rows)
+
+    def run(device):
+        up = [torch.from_numpy(a).to(device) for a in (*ev, tau)]
+        return bmw_device.survival(*up, T).cpu().numpy()
+
+    dev = store.device
+    run(dev)  # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = run(dev)
+    t["survival_card_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_cpu = min(len(rows), 64)  # the CPU run is (T, rows, P) float64
+    up = [torch.from_numpy(a[:n_cpu]) for a in (*ev, tau)]
+    cpu = bmw_device.survival(*up, T).numpy()
+    differ = int((got[:n_cpu] != cpu).sum())
+    t0 = time.perf_counter()
+    keeps = bmw_device.unpack_masks(got, ev[0], ev[1], ev[3], rows)
+    t["mask_unpack_s"] = time.perf_counter() - t0
+    bound = pointwise_bound_replay(*ev, rows)
+    lost = extra = total = kept = 0
+    for keep, b, tq in zip(keeps, bound, tau):
+        for term, m in keep.items():
+            want = b[term] >= tq
+            lost += int((want & ~m).sum())
+            extra += int((m & ~want).sum())
+            total += m.shape[0]
+            kept += int(m.sum())
+    if lost:
+        fail(f"the card pruned {lost} blocks that the float64 replay of "
+             "the pointwise bound keeps")
+    torch.cuda.empty_cache()
+    out = {"device_queries": len(rows), "event_width": P, "slots": T,
+           "blocks": total, "blocks_kept": kept,
+           "pruned_but_kept_by_replay": lost,
+           "kept_but_pruned_by_replay": extra,
+           "mask_bytes_differing_from_cpu": differ,
+           "rows_compared_with_cpu": n_cpu,
+           "survival_peak_bytes": peak, **t}
+    log(f"survival pass: {out}")
+    return out
+
+
+def check_host_engine(state):
+    """The host engine on the log's first queries, one pass: wand and
+    maxscore against the device engine's pruned top-k, ranked_and
+    against the oracle's sums over the device engine's AND members, and
+    the lazy and/or against the device counts; then each op once
+    through ``tools.queries.run_op``."""
+    from dint_tpu_torch.query import (boolean, device_batch, lazy_decode,
+                                      ranked)
+    from dint_tpu_torch.tools import queries as qtool
+
+    index, wdata, dec = state["index"], state["wdata"], state["decoder"]
+    qs = state["queries"][:HOST_QUERIES]
+    dev_s, _ = state["pruned"]
+    members = device_batch.and_results_batch(dec, qs)
+    shared = dec._lazy_cache
+    t0 = time.perf_counter()
+    for i, q in enumerate(qs):
+        for op in ("wand", "maxscore"):
+            dec._lazy_cache = lazy_decode.BlockCache(index)
+            got = getattr(ranked, op)(index, dec, wdata, q, TOPK)
+            if got.shape != dev_s[i].shape or not np.allclose(
+                    got, dev_s[i], rtol=RTOL, atol=ATOL):
+                fail(f"host {op} query {i} {q}: {got} != device {dev_s[i]}")
+        dec._lazy_cache = lazy_decode.BlockCache(index)
+        got = ranked.ranked_and(index, dec, wdata, q, TOPK)
+        _, ud, sums = state["oracle"][i]
+        pos = np.searchsorted(ud, members[i].astype(np.int64))
+        want = np.sort(sums[pos])[::-1][:TOPK].astype(np.float32)
+        if got.shape != want.shape or not np.allclose(got, want, rtol=RTOL,
+                                                      atol=ATOL):
+            fail(f"host ranked_and query {i} {q}: {got} != {want}")
+        cache = lazy_decode.BlockCache(index)
+        n_and = boolean.and_query_lazy(cache, q).shape[0]
+        n_or = boolean.or_query_lazy(cache, q).shape[0]
+        if (n_and, n_or) != (int(state["and_counts"][i]),
+                             int(state["or_counts"][i])):
+            fail(f"host and/or query {i} {q}: {(n_and, n_or)} != device")
+    check_s = time.perf_counter() - t0
+    recs = {}
+    for op in HOST_OPS:
+        stats = qtool.run_op(index, dec, wdata, qs, op, 1, TOPK)
+        recs[op] = {**stats, **(dec._lazy_totals or {})}
+        log(f"host engine {op}: {recs[op]}")
+    dec._lazy_cache = shared
+    return {"queries": len(qs), "check_s": check_s, "records": recs}
+
+
+def pointwise_bound_replay(docid, is_end, delta, slot, rows):
+    """A float64 numpy replay of the pointwise bound on one batch's
+    event arrays (in build order, as ``bmw_device.build_events`` lays
+    them out: a slot's starts, then its ends, block order inside each).
+    U(x) is the sum of the deltas of every event at a docid <= x; a
+    block's value is the maximum of U over the docids of its span.  No
+    tie order, no scan, no running maximum: it shares nothing with the
+    survival pass but the events.  Returns per row {term: max U per
+    block}."""
+    out = []
+    for r, geoms in enumerate(rows):
+        n = int((slot[r] != 255).sum())
+        d = docid[r, :n].astype(np.int64)
+        order = np.argsort(d, kind="stable")
+        pts, first = np.unique(d[order], return_index=True)
+        cs = np.cumsum(delta[r, :n].astype(np.float64)[order])
+        last = np.concatenate([first[1:], [n]]) - 1
+        U = np.concatenate([cs[last], [-np.inf]]) if n else np.zeros(1)
+        res, pos = {}, 0
+        for t, (lo, _, _) in geoms:
+            nb = lo.shape[0]
+            i0 = np.searchsorted(pts, d[pos:pos + nb], side="left")
+            i1 = np.searchsorted(pts, d[pos + nb:pos + 2 * nb], side="left")
+            pairs = np.stack([i0, i1], axis=1).reshape(-1)
+            res[t] = (np.maximum.reduceat(U, pairs)[0::2] if nb
+                      else np.zeros(0))
+            pos += 2 * nb
+        out.append(res)
+    return out
 
 
 def check_serve_classes(kept, counts):
@@ -1201,10 +1464,11 @@ def check_serve_classes(kept, counts):
 
 
 def serve_phases(base: str, paths, card_name: str, trace_path: str):
-    """Phases 6-9 on the card: the serving main path with launches
+    """Phases 9-14 on the card: the serving main path with launches
     counted from zero, K1-K3 against their twins on that path's class
-    tensors, K4 against its plain version and its times, exactness, and
-    the profiler.  Returns a summary with the launch counts, the serve
+    tensors, K4 against its plain version and its times, exactness
+    unpruned and pruned, the survival pass against its replay, the host
+    engine, and the profiler.  Returns a summary with the launch counts, the serve
     path's K1-K3 errors, K4's kernels-line entry and the records."""
     import torch
 
@@ -1223,16 +1487,43 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
     del kept
     torch.cuda.empty_cache()
     store = state["store"]
-    buckets, _, _ = store._batch_metadata(state["queries"], TOPK)
+    buckets, _, _ = store._batch_metadata(state["queries"], TOPK,
+                                          prune=False)
     dev_buckets, _ = store.upload(buckets)
-    if counts["K4_block_copy"] != len(buckets) * (SERVE_RUNS + 1):
-        fail(f"K4 launched {counts['K4_block_copy']} times, not once per "
-             f"bucket ({len(buckets)}) per pass ({SERVE_RUNS + 1})")
-    k4_err = check_k4(store, k4_cases(store, dev_buckets))
+    t0 = time.perf_counter()
+    pbuckets, _, pstats = store._batch_metadata(
+        state["queries"], TOPK, prune=True,
+        lazy_cache=state["decoder"].lazy_cache)
+    pruned_meta_s = time.perf_counter() - t0
+    pruned_dev_buckets, _ = store.upload(pbuckets)
+    want_k4 = {"ranked_or": len(buckets), "wand": len(pbuckets),
+               "maxscore": len(pbuckets), RANKED_AGAIN: len(buckets)}
+    for op in want_k4:
+        if recs[op]["k4_launches"] != want_k4[op] * (SERVE_RUNS + 1):
+            fail(f"{op}: K4 launched {recs[op]['k4_launches']} times, not "
+                 f"once per bucket ({want_k4[op]}) per pass "
+                 f"({SERVE_RUNS + 1})")
+    if counts["K4_block_copy"] != sum(recs[op]["k4_launches"]
+                                      for op in want_k4):
+        fail(f"K4 launched {counts['K4_block_copy']} times on the serve "
+             "path, more than its ranked ops account for")
+    for op in ("wand", "maxscore"):
+        if not (int(recs[op]["blocks_kept"]) == pstats["blocks_kept"]
+                < int(recs[op]["blocks_total"]) == pstats["blocks_total"]):
+            fail(f"{op} pruned nothing, or not what the store prunes: "
+                 f"{recs[op]['blocks_kept']} of {recs[op]['blocks_total']} "
+                 f"kept, the store {pstats}")
+    k4_err = check_k4(store, k4_cases(store, dev_buckets)
+                      + [(f"pruned P={P} G={blk.shape[0]}", blk, qw)
+                         for P, _, blk, qw, _ in pruned_dev_buckets])
     log(f"K4 equals its plain version at {len(dev_buckets)} bucket shapes "
         f"and {len(K4_EDGE_G)} edge batches")
     exact = check_serving(base, state)
     log(f"serving exact: {exact}")
+    survival = check_survival(state)
+    host = check_host_engine(state)
+    log(f"host engine agrees with the device engine on {host['queries']} "
+        f"queries ({host['check_s']:.1f} s)")
     shapes = time_k4(store, dev_buckets, card_name)
     for sh in shapes:
         log(f"K4 P={sh['P']} G={sh['G']} ({sh['distinct_rows']} distinct "
@@ -1258,21 +1549,64 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
         "bytes": nbytes,
         "shapes": shapes,
     }
+    k4["launches_by_op"] = {op: recs[op]["k4_launches"] for op in want_k4}
     prof = profile_device(
         lambda: [store.serve(dev_buckets, TOPK)
                  for _ in range(PROFILE_PASSES)],
         PROFILE_PASSES, trace_path)
+    pruned_prof = profile_device(
+        lambda: [store.serve(pruned_dev_buckets, TOPK)
+                 for _ in range(PROFILE_PASSES)],
+        PROFILE_PASSES, trace_path.replace(".json", "_pruned.json"))
     torch.cuda.synchronize()
+    index = state["index"]
+    ids = np.concatenate([blk[blk != store.NB - 1]
+                          for _, blk, _, _ in pbuckets.values()])
+    term = np.searchsorted(store.blk_off, ids, side="right") - 1
+    kept_postings = int(np.minimum(
+        256, index.list_n[term].astype(np.int64)
+        - 256 * (ids - store.blk_off[term])).sum())
+    shapes_of = lambda bs: [[P, len(idxs)] for P, idxs, *_ in bs]
+    pruned = {
+        **{op: {key: recs[op][key] for key in ("avg", "q50", "q90", "q95")}
+           for op in want_k4},
+        "blocks_kept": pstats["blocks_kept"],
+        "blocks_total": pstats["blocks_total"],
+        "postings_kept": kept_postings,
+        "postings_total": sum(int(index.list_n[t]) for q in state["queries"]
+                              if len(set(q)) > 1 for t in set(q)),
+        **{key: pstats[key] for key in ("device_queries",
+                                        "host_fallback_queries",
+                                        "event_width")},
+        "prune_rows_host_s": {op: recs[op]["prune_rows_host_s"]
+                              for op in RANKED_OPS},
+        "pruned_metadata_s": pruned_meta_s,
+        "buckets_unpruned": shapes_of(dev_buckets),
+        "buckets_pruned": shapes_of(pruned_dev_buckets),
+        "lanes_unpruned": sum(P * len(i) for P, i, *_ in dev_buckets),
+        "lanes_pruned": sum(P * len(i) for P, i, *_ in pruned_dev_buckets),
+        "device_busy_ms_per_pass_unpruned": prof["device_busy_ms_per_run"],
+        "device_busy_ms_per_pass_pruned":
+            pruned_prof["device_busy_ms_per_run"],
+        "wall_ms_per_pass_unpruned": prof["wall_ms_per_run"],
+        "wall_ms_per_pass_pruned": pruned_prof["wall_ms_per_run"],
+        "survival": survival,
+    }
     return {"records": recs, "host_s": times, "launches": counts,
             "class_errs": class_errs, "exact": exact,
             "store_bytes": store.store_bytes, "store_rows": store.NB,
-            "k4": k4, "profile": prof}
+            "k4": k4, "profile": prof, "pruned_profile": pruned_prof,
+            "pruned": pruned, "host_engine": host}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
     ap.add_argument("--out", help="also write the full summary JSON here")
+    ap.add_argument("--k5-old", metavar="SOURCE",
+                    help="another K5 source with the same C entry (an "
+                    "earlier body, say from git history): timed in turns "
+                    "beside the shipped kernel and fill_")
     args = ap.parse_args(argv)
 
     import torch
@@ -1342,7 +1676,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 6. K5 against its plain version, and its times
-    k5 = check_k5(total, kind)
+    k5 = check_k5(total, kind, args.k5_old)
     k5["launches"] = bench_counts["K5_store_tile"]
     k5["launches_by_path"] = {"bench": k5["launches"]}
 
@@ -1354,8 +1688,9 @@ def main(argv=None) -> int:
                                    "nvidia_smi": smi}}), flush=True)
     torch.cuda.empty_cache()
 
-    # 8-12. serving: data, the serve path (launches counted from zero),
-    # K4 against its plain version, exactness, profiler
+    # 8-14. serving: data, the serve path (launches counted from zero),
+    # K4 against its plain version, exactness, survival pass, host
+    # engine, profiler
     paths, data_s = make_serve_data(CACHE, base)
     serve = serve_phases(base, paths, kind,
                          os.path.join(CACHE, "serve_trace.json"))
@@ -1400,6 +1735,9 @@ def main(argv=None) -> int:
         "device": kind, "nvidia_smi": smi,
     }}), flush=True)
     print(json.dumps({"serve_profile": serve["profile"]}), flush=True)
+    print(json.dumps({"serve_pruned": {**serve["pruned"], "k": TOPK,
+                                       "device": kind, "nvidia_smi": smi}}),
+          flush=True)
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
                "chain_salt": salt, "profile": prof, "bench": bench_rec,

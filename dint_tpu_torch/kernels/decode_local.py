@@ -584,7 +584,7 @@ def plan_stream(arena, starts, byte_lens, ns, ctxs, b_bits, view) -> LocalPlan:
         raise RuntimeError(
             f"native planner unavailable ({err.strip()}); the pure-Python "
             "planner walk is not ported: ROADMAP.md 'Modules still to port' "
-            "item 5"
+            "item 4"
         )
     return LocalPlan(*res)
 

@@ -283,7 +283,7 @@ class UnpackEngine:
             raise NotImplementedError(
                 f"codec {plan.codec!r}: only the ladder image is ported; "
                 "the wire-format unpack engines are ROADMAP.md 'Modules "
-                "still to port' item 3"
+                "still to port' item 2"
             )
 
         def up(a):

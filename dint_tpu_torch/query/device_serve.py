@@ -22,8 +22,11 @@ dict_posting_list.hpp:14-56):
   * row NB-1 is a dedicated all-PAD block: unused tile slots of a
     padded batch point there with qw 0.
 
-Block-Max pruning (the reference's ``prune=True`` with a lazy block
-cache) is not ported yet: ROADMAP.md 'Modules still to port' item 1.
+Block-Max pruning (``prune=True`` with a lazy block cache and a
+block-max sidecar): the survival pass of ``query/bmw_device.py`` runs on
+the store's device before the batch is shaped, and the blocks that
+cannot reach a query's top-k leave its block id list, so K4 copies and
+the sort-merge sorts only the survivors.
 """
 
 from __future__ import annotations
@@ -35,15 +38,11 @@ import numpy as np
 import torch
 
 from ..kernels import cuda_ext
-from . import device_batch
+from . import bmw_device, device_batch
 from . import ranked as ranked_mod
 
 PAD_DOC = device_batch.PAD_DOC
 BLOCK = 256
-NOT_PORTED_PRUNE = (
-    "Block-Max pruning of the fused store is not ported yet: ROADMAP.md "
-    "'Modules still to port' item 1 (the BMW slice)"
-)
 
 # ---------------------------------------------------------------------------
 # K4: block copy by block id
@@ -258,11 +257,19 @@ class DeviceServingStore:
 
     # ---------------------------------------------------------- batches
 
-    def _batch_metadata(self, queries: Sequence[Sequence[int]], k: int):
+    def _batch_metadata(self, queries: Sequence[Sequence[int]], k: int,
+                        prune: bool = True, lazy_cache=None):
         """Per-size-bucket {P: (query idxs, blk (G,) i32, qw (G,) f32,
         tmax)}, the table-answered single-term queries {qi: (t, qw)} and
-        the count of touched blocks (nothing prunes them yet)."""
-        stats = {"blocks": 0}
+        the stats (``blocks_total`` touched, ``blocks_kept`` shipped).
+
+        With ``prune``, a block-max sidecar and a lazy block cache, the
+        survival pass (query/bmw_device.py, on the store's device) drops
+        dead blocks before the batch is shaped (exact: a failed block's
+        best score cannot enter the final top-k); its ``device_queries``,
+        ``host_fallback_queries`` and ``event_width`` join the stats."""
+        keeps = None
+        stats = {"blocks_total": 0, "blocks_kept": 0}
         weighted = [ranked_mod._query_weights(self.index, q)
                     for q in queries]
         # single-term queries resolve from the per-term top-K0 table
@@ -272,6 +279,22 @@ class DeviceServingStore:
             if len(wlist) == 1 and k <= self.topk_k0:
                 singles[qi] = wlist[0]
         stats["single_term_queries"] = len(singles)
+        if (prune
+                and getattr(self.wdata, "block_maxw", None) is not None
+                and lazy_cache is not None):
+            multi_idx = [qi for qi in range(len(queries))
+                         if qi not in singles]
+            if multi_idx:
+                hints = [self.tau_from_tables(weighted[qi], k)
+                         for qi in multi_idx]
+                mkeeps, _taus, pstats = bmw_device.prune_blocks_device(
+                    lazy_cache, self.index, self.wdata,
+                    [queries[qi] for qi in multi_idx], k,
+                    taus_hint=hints, device=self.device)
+                keeps = [None] * len(queries)
+                for j, qi in enumerate(multi_idx):
+                    keeps[qi] = mkeeps[j]
+                stats.update(pstats)
         per_q_blocks: List[Optional[np.ndarray]] = []
         per_q_qw: List[Optional[np.ndarray]] = []
         for qi, wlist in enumerate(weighted):
@@ -287,7 +310,13 @@ class DeviceServingStore:
                 ids = np.arange(
                     int(self.blk_off[t]), int(self.blk_off[t]) + nbt,
                     dtype=np.int32)
-                stats["blocks"] += nbt
+                stats["blocks_total"] += nbt
+                if keeps is not None and keeps[qi] is not None:
+                    m = keeps[qi].get(int(t))
+                    if m is not None:
+                        assert m.shape[0] == nbt, (t, m.shape, nbt)
+                        ids = ids[m]
+                stats["blocks_kept"] += ids.shape[0]
                 bs.append(ids)
                 ws.append(np.full(ids.shape[0], qw, np.float32))
             per_q_blocks.append(
@@ -392,12 +421,12 @@ class DeviceServingStore:
         prune: bool = True,
         lazy_cache=None,
     ) -> Tuple[List[np.ndarray], List[np.ndarray], Dict[str, int]]:
-        """Exact ranked-union top-k per query.  Returns (scores desc,
-        docids, stats).  With ``prune`` and a lazy block cache the
-        reference drops dead blocks first (not ported: raises)."""
-        if prune and lazy_cache is not None:
-            raise NotImplementedError(NOT_PORTED_PRUNE)
-        buckets, singles, stats = self._batch_metadata(queries, k)
+        """Exact ranked-union top-k per query (wand/maxscore/ranked_or
+        all return this set).  Returns (scores desc, docids, stats).
+        With ``prune`` and a lazy block cache, dead blocks are dropped
+        first (see ``_batch_metadata``)."""
+        buckets, singles, stats = self._batch_metadata(
+            queries, k, prune=prune, lazy_cache=lazy_cache)
         out_s: List[np.ndarray] = [None] * len(queries)
         out_d: List[np.ndarray] = [None] * len(queries)
         for qi, (t, qw) in singles.items():

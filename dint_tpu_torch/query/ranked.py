@@ -8,13 +8,19 @@ doc_term_weight), plus the per-256-block max weights.
 
 `ranked_or` is the exhaustive union scorer — the oracle the reference's
 own tests compare WAND/maxscore against (test_ranked_queries.cpp:43-55).
-`wand`, `maxscore` and `ranked_and` walk skipping cursors over the lazy
-block decoder and are not ported yet: ROADMAP.md 'Modules still to port'
-item 1 (the BMW slice).
+`wand` implements the reference's WAND pivoting (queries.hpp:190-307)
+and `maxscore` the essential/non-essential list split
+(queries.hpp:459-573), both over the skip-aware lazy block decoder
+(query/lazy_decode.py) so only the blocks the skips land in are decoded;
+`ranked_and` scores the lazy AND set.  Per-query block and posting
+counters live on the decoder's lazy cache.  All host numpy: the batched
+analogue on the device (block-max pruning before the sort-merge top-k)
+is query/bmw_device.py with query/device_serve.py.
 """
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -150,3 +156,221 @@ def ranked_or(index, decoder, wdata: WandData, terms: Sequence[int],
     sums = np.add.reduceat(s, starts)
     top = np.sort(sums)[::-1][:k]
     return top.astype(np.float32)
+
+
+class TopKQueue:
+    """Min-heap of the k best scores (topk_queue, queries.hpp:150-188)."""
+
+    __slots__ = ("k", "q")
+
+    def __init__(self, k: int):
+        self.k = k
+        self.q: List[float] = []
+
+    def would_enter(self, score: float) -> bool:
+        return len(self.q) < self.k or score > self.q[0]
+
+    def insert(self, score: float) -> bool:
+        if len(self.q) < self.k:
+            heapq.heappush(self.q, score)
+            return True
+        if score > self.q[0]:
+            heapq.heapreplace(self.q, score)
+            return True
+        return False
+
+    def topk(self) -> np.ndarray:
+        return np.sort(np.asarray(self.q, dtype=np.float32))[::-1]
+
+
+def _lazy_cursors(index, decoder, terms):
+    """Per-term skipping cursors from the decoder's lazy cache.
+
+    Caches expose ``make_cursor`` (block caches return the block-max
+    leapfrog cursor, EF caches return pointer-skipping enumerator
+    cursors); all cursors share the docid/freq/next/next_geq protocol."""
+    cache = decoder.lazy_cache
+    if hasattr(cache, "make_cursor"):
+        return cache, [cache.make_cursor(t) for t, _ in terms]
+    from .lazy_decode import Cursor
+
+    return cache, [Cursor(cache, t) for t, _ in terms]
+
+
+def wand(
+    index,
+    decoder,
+    wdata: WandData,
+    terms: Sequence[int],
+    k: int = 10,
+) -> np.ndarray:
+    """WAND pivoting (queries.hpp:190-307): prefix-sum the per-list
+    max weights in docid order to find the pivot; score only pivot
+    candidates; `next_geq` the farthest list otherwise.  Decodes only
+    the blocks the skips land in (lazy_decode counters prove it).
+
+    Decoders without a lazy block engine (EF / block-codec indexes)
+    fall back to the exhaustive scorer — identical top-k, no pruning."""
+    if not hasattr(decoder, "lazy_cache"):
+        return ranked_or(index, decoder, wdata, terms, k)
+    weighted = _query_weights(index, terms)
+    if not weighted:
+        return np.zeros(0, dtype=np.float32)
+    cache, cursors = _lazy_cursors(index, decoder, weighted)
+    num_docs = index.num_docs
+    enums = []  # [cursor, q_weight, max_weight]
+    for (t, qw), cur in zip(weighted, cursors):
+        enums.append((cur, np.float32(qw), np.float32(qw * wdata.max_term_weight[t])))
+    ordered = sorted(enums, key=lambda e: e[0].docid())
+    topk = TopKQueue(k)
+    norm_lens = wdata.norm_lens
+
+    while True:
+        # find pivot (queries.hpp:241-253)
+        upper_bound = np.float32(0.0)
+        found_pivot = False
+        pivot = 0
+        for pivot in range(len(ordered)):
+            if ordered[pivot][0].docid() == num_docs:
+                break
+            upper_bound = np.float32(upper_bound + ordered[pivot][2])
+            if topk.would_enter(float(upper_bound)):
+                found_pivot = True
+                break
+        if not found_pivot:
+            break
+        pivot_id = ordered[pivot][0].docid()
+        if pivot_id == ordered[0][0].docid():
+            score = np.float32(0.0)
+            nl = norm_lens[pivot_id]
+            for cur, qw, _ in ordered:
+                if cur.docid() != pivot_id:
+                    break
+                f = np.float32(cur.freq())
+                score = np.float32(
+                    score + qw * (f / (f + np.float32(K1) * (1.0 - B + B * nl)))
+                )
+                cache.postings_scored += 1
+                cur.next()
+            topk.insert(float(score))
+            ordered.sort(key=lambda e: e[0].docid())
+        else:
+            next_list = pivot
+            while ordered[next_list][0].docid() == pivot_id:
+                next_list -= 1
+            ordered[next_list][0].next_geq(pivot_id)
+            for i in range(next_list + 1, len(ordered)):
+                if ordered[i][0].docid() < ordered[i - 1][0].docid():
+                    ordered[i], ordered[i - 1] = ordered[i - 1], ordered[i]
+                else:
+                    break
+    return topk.topk()
+
+
+def maxscore(
+    index,
+    decoder,
+    wdata: WandData,
+    terms: Sequence[int],
+    k: int = 10,
+) -> np.ndarray:
+    """maxscore essential/non-essential split (queries.hpp:459-573):
+    lists sorted by max weight; lists whose prefix upper bound cannot
+    enter the top-k become non-essential and are only probed by
+    next_geq during score completion.  Decoders without a lazy block
+    engine fall back to the exhaustive scorer."""
+    if not hasattr(decoder, "lazy_cache"):
+        return ranked_or(index, decoder, wdata, terms, k)
+    weighted = _query_weights(index, terms)
+    if not weighted:
+        return np.zeros(0, dtype=np.float32)
+    cache, cursors = _lazy_cursors(index, decoder, weighted)
+    num_docs = index.num_docs
+    enums = []
+    for (t, qw), cur in zip(weighted, cursors):
+        enums.append((cur, np.float32(qw), np.float32(qw * wdata.max_term_weight[t])))
+    ordered = sorted(enums, key=lambda e: float(e[2]))  # increasing maxscore
+    upper_bounds = np.cumsum([float(e[2]) for e in ordered]).astype(np.float32)
+    topk = TopKQueue(k)
+    norm_lens = wdata.norm_lens
+    non_essential = 0
+    cur_doc = min(e[0].docid() for e in enums)
+
+    while non_essential < len(ordered) and cur_doc < num_docs:
+        score = np.float32(0.0)
+        nl = norm_lens[cur_doc] if cur_doc < num_docs else np.float32(0)
+        next_doc = num_docs
+        for i in range(non_essential, len(ordered)):
+            cur, qw, _ = ordered[i]
+            if cur.docid() == cur_doc:
+                f = np.float32(cur.freq())
+                score = np.float32(
+                    score + qw * (f / (f + np.float32(K1) * (1.0 - B + B * nl)))
+                )
+                cache.postings_scored += 1
+                cur.next()
+            if cur.docid() < next_doc:
+                next_doc = cur.docid()
+        # try to complete evaluation with non-essential lists
+        for i in range(non_essential - 1, -1, -1):
+            if not topk.would_enter(float(score + upper_bounds[i])):
+                break
+            cur, qw, _ = ordered[i]
+            cur.next_geq(cur_doc)
+            if cur.docid() == cur_doc:
+                f = np.float32(cur.freq())
+                score = np.float32(
+                    score + qw * (f / (f + np.float32(K1) * (1.0 - B + B * nl)))
+                )
+                cache.postings_scored += 1
+        if topk.insert(float(score)):
+            while non_essential < len(ordered) and not topk.would_enter(
+                float(upper_bounds[non_essential])
+            ):
+                non_essential += 1
+        cur_doc = next_doc
+    return topk.topk()
+
+
+def ranked_and(
+    index,
+    decoder,
+    wdata: WandData,
+    terms: Sequence[int],
+    k: int = 10,
+) -> np.ndarray:
+    """ranked_and_query (queries.hpp:309-385): score docs in the AND
+    set.  With a block-structured lazy cache the AND leapfrogs over
+    block_max skip data and only matched blocks' freqs decode
+    (dict_posting_list.hpp:126-147, :164-169 semantics)."""
+    from .boolean import and_query, and_query_lazy, matched_freqs_lazy
+
+    weighted = _query_weights(index, terms)
+    if not weighted:
+        return np.zeros(0, dtype=np.float32)
+    tlist = [t for t, _ in weighted]
+
+    cache = getattr(decoder, "lazy_cache", None)
+    if cache is not None and hasattr(cache, "docs_blocks_batch"):
+        cand = and_query_lazy(cache, tlist)
+        if cand.shape[0] == 0:
+            return np.zeros(0, dtype=np.float32)
+        mf = matched_freqs_lazy(cache, tlist, cand)
+        total = np.zeros(cand.shape[0], dtype=np.float32)
+        nl = wdata.norm_lens[cand.astype(np.int64)]
+        for t, qw in weighted:
+            total += np.float32(qw) * doc_term_weight(mf[t], nl)
+        cache.postings_scored += cand.shape[0] * len(weighted)
+        return np.sort(total)[::-1][:k].astype(np.float32)
+
+    docs = decoder.decode_docids(tlist)
+    freqs = decoder.decode_freqs(tlist)
+    cand = and_query(docs, tlist)
+    if cand.shape[0] == 0:
+        return np.zeros(0, dtype=np.float32)
+    total = np.zeros(cand.shape[0], dtype=np.float32)
+    nl = wdata.norm_lens[cand.astype(np.int64)]
+    for t, qw in weighted:
+        pos = np.searchsorted(docs[t], cand)
+        total += np.float32(qw) * doc_term_weight(freqs[t][pos], nl)
+    return np.sort(total)[::-1][:k].astype(np.float32)

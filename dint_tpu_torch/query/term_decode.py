@@ -26,11 +26,6 @@ from ..codecs import interpolative
 from ..config import BLOCK_SIZE, NUM_SELECTORS
 from ..kernels import decode_local
 
-NOT_PORTED_LAZY = (
-    "the skip-aware lazy block cache is not ported yet: ROADMAP.md "
-    "'Modules still to port' item 1 (the BMW slice)"
-)
-
 
 class TermDecoder:
     """Decodes docID and freq lists for sets of terms on ``device``."""
@@ -44,10 +39,19 @@ class TermDecoder:
         self._doc_cache: Dict[int, np.ndarray] = {}
         self._freq_cache: Dict[int, np.ndarray] = {}
         self.timings: Dict[str, float] = {}
+        self._lazy_cache = None
+        self._lazy_totals = None  # tools.queries.run_op's counter sums
 
     @property
     def lazy_cache(self):
-        raise NotImplementedError(NOT_PORTED_LAZY)
+        """Skip-aware per-block decoder shared by WAND/maxscore/lazy AND
+        (query/lazy_decode.py): decodes only the blocks skips land in.
+        Host numpy, whatever ``device`` is."""
+        if self._lazy_cache is None:
+            from .lazy_decode import BlockCache
+
+            self._lazy_cache = BlockCache(self.index)
+        return self._lazy_cache
 
     def _tick(self, phase: str, t0: float) -> float:
         t1 = time.perf_counter()

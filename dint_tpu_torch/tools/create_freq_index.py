@@ -11,7 +11,7 @@ it in the reference package's file format, and with --check re-decodes
 every posting against the input (verify_collection.hpp).
 
 The EF family (ef, single, uniform, opt) and the block_<codec> kinds are
-not ported yet: ROADMAP.md 'Modules still to port' item 5.
+not ported yet: ROADMAP.md 'Modules still to port' item 4.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ BLOCK_KINDS = tuple(
         "vbyte", "simple16", "varintgb", "maskedvbyte", "streamvbyte",
     )
 )
-NOT_PORTED = ("ROADMAP.md 'Modules still to port' item 5 (the EF and "
+NOT_PORTED = ("ROADMAP.md 'Modules still to port' item 4 (the EF and "
               "block_<codec> index families)")
 
 

@@ -40,7 +40,7 @@ from ..kernels import decode_local
 from . import common
 
 _NOT_PORTED = {
-    "raw": "ROADMAP.md 'Modules still to port' item 2 (the raw chain-scan "
+    "raw": "ROADMAP.md 'Modules still to port' item 1 (the raw chain-scan "
            "engine, kernels/decode_xla.py + kernels/pipeline.py)",
 }
 

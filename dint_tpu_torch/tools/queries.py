@@ -1,21 +1,29 @@
-"""Query timing CLI on the card (src/queries.cpp equivalent).
+"""Query timing CLI (src/queries.cpp equivalent).
 
     python -m dint_tpu_torch.tools.queries <index_type>
         <query_type(colon-separated)> <index_file> [wand_data_file]
-        --queries FILE [--runs R] [--k K] [--engine device]
+        --queries FILE [--runs R] [--k K] [--engine device|host]
         [--device cuda|cpu]
 
-The device engine (the only one ported): ``ranked_or`` goes through the
-fused device-resident store (``query/device_serve.py``: decode once at
-load, K4 block copy + sort-merge top-k per pass); ``and`` and ``or``
-count through the sort-merge engine of ``query/device_batch.py``.
-Reports avg/q50/q90/q95 microseconds per query over R timed passes of
-the whole batch after one untimed warm-up pass, one JSON line per op
-(src/queries.cpp:25-61), with the device it ran on.
+``--engine device`` (the default) runs whole batches on ``--device``:
+``ranked_or``, ``wand`` and ``maxscore`` go through the fused
+device-resident store (``query/device_serve.py``: decode once at load,
+K4 block copy + sort-merge top-k per pass); ``wand`` and ``maxscore``
+first drop, with the Block-Max survival pass of ``query/bmw_device.py``,
+the blocks that cannot reach a query's top-k (they need the wand data's
+block-max sidecar; the three ops return the same top-k).  ``and`` and
+``or`` count through the sort-merge engine of ``query/device_batch.py``.
 
-Not ported yet: ``wand`` and ``maxscore`` (the reference prunes them
-with Block-Max WAND on the device engine) and ``--engine host`` (ROADMAP
-item 1, the BMW slice); ``--engine native`` (ROADMAP item 5).
+``--engine host`` runs one query at a time in numpy (``run_op``): and,
+and_freq, or, or_freq, wand, maxscore, ranked_and over the skip-aware
+lazy block cache, each query from a fresh cache so that its time covers
+the blocks its skips land in; ranked_or over the pre-decoded lists.
+
+Reports avg/q50/q90/q95 microseconds per query over R timed passes
+after one untimed warm-up pass, one JSON line per op
+(src/queries.cpp:25-61), with the device it ran on.  ``--engine native``
+(the C++ cursor engine) is not ported yet: ROADMAP.md 'Modules still to
+port'.
 """
 
 from __future__ import annotations
@@ -28,20 +36,17 @@ import torch
 
 from ..backend import device_name, resolve_device
 from ..index.dint_index import DintIndex
-from ..query import boolean, device_batch, device_serve, ranked
+from ..query import bmw, bmw_device, boolean, device_batch, device_serve, ranked
 from ..query.term_decode import TermDecoder
 from . import common
 
 NOT_PORTED_ENGINES = {
-    "host": "ROADMAP.md 'Modules still to port' item 1 (the BMW slice: "
-            "lazy cursors and the host query engines)",
-    "native": "ROADMAP.md 'Modules still to port' item 5 (the native C++ "
+    "native": "ROADMAP.md 'Modules still to port' item 4 (the native C++ "
               "cursor engine, query/native_host.py)",
 }
-NOT_PORTED_OPS = {
-    "wand": device_serve.NOT_PORTED_PRUNE,
-    "maxscore": device_serve.NOT_PORTED_PRUNE,
-}
+RANKED_DEVICE_OPS = ("wand", "maxscore", "ranked_or")
+HOST_OPS = ("and", "and_freq", "or", "or_freq", "wand", "maxscore",
+            "ranked_and", "ranked_or")
 
 
 def percentiles(us):
@@ -73,8 +78,11 @@ def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
     """Fused device-resident serving: postings decode ONCE into the
     device block store at load (``store``, built over the log's terms
     when not given); each timed pass is K4 block copies + sort-merge
-    top-k for every bucket, driven by 8 B of host metadata per touched
-    256-block, plus the single-term table lookups."""
+    top-k for every bucket, driven by 8 B of host metadata per shipped
+    256-block, plus the single-term table lookups.  ``wand`` and
+    ``maxscore`` ship only the blocks that pass the Block-Max survival
+    test (given a block-max sidecar); ``prune_rows_host_s`` is the time
+    of the batch metadata, that test included."""
     Q = len(queries_list)
     if store is None:
         terms = sorted({int(t) for q in queries_list for t in q})
@@ -83,10 +91,14 @@ def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
     store_s = store.build_s
     common.log(f"[fused] store: {store.store_bytes >> 20} MiB, "
                f"built in {store_s:.1f} s")
+    prune = (op in ("wand", "maxscore")
+             and getattr(wdata, "block_maxw", None) is not None)
     t1 = time.perf_counter()
-    buckets, singles, stats = store._batch_metadata(queries_list, k)
-    dev_buckets, upload = store.upload(buckets)
+    buckets, singles, stats = store._batch_metadata(
+        queries_list, k, prune=prune,
+        lazy_cache=decoder.lazy_cache if prune else None)
     meta_s = time.perf_counter() - t1
+    dev_buckets, upload = store.upload(buckets)
     widest = max((P for P, *_ in dev_buckets), default=0)
     for P, idxs, blk, _, tmax in dev_buckets:
         common.log(f"[fused] bucket P={P} G={blk.shape[0]} rows={len(idxs)} "
@@ -108,7 +120,11 @@ def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
         "prune_rows_host_s": f"{meta_s:.3f}",
         "row_upload_bytes": "0",
         "metadata_upload_bytes": str(upload),
-        "blocks": str(stats["blocks"]),
+        "blocks_kept": str(stats["blocks_kept"]),
+        "blocks_total": str(stats["blocks_total"]),
+        **{key: str(stats[key]) for key in
+           ("device_queries", "host_fallback_queries", "event_width")
+           if key in stats},
         "buckets": ",".join(f"{P}x{len(idxs)}"
                             for P, idxs, *_ in dev_buckets),
     }
@@ -116,30 +132,75 @@ def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
 
 
 def run_op_device(index, decoder, wdata, queries_list, op, runs, k,
-                  store=None):
-    """Whole-batch device execution of one op: ranked_or through the
-    fused store, and/or through the sort-merge counts of device_batch
-    (rows padded and uploaded once; every timed pass runs each bucket
-    and fetches its counts)."""
-    if op in NOT_PORTED_OPS:
-        raise NotImplementedError(
-            f"query type {op!r} is not ported yet: {NOT_PORTED_OPS[op]}")
-    if op == "ranked_or":
+                  store=None, fused=True, prune_engine="device"):
+    """Whole-batch device execution of one op on the decoder's device.
+    Ranked ops (wand, maxscore, ranked_or) go through the fused store;
+    with ``fused=False`` they take the row-upload path: per-query
+    (docid, score) rows are assembled on the host, for wand and maxscore
+    from the blocks that survive Block-Max pruning (survival test on the
+    device, or with ``prune_engine="host"`` in numpy), padded and
+    uploaded once, and every timed pass sort-merges each bucket.  and/or
+    count through the same sort-merge (rows padded and uploaded once;
+    every timed pass runs each bucket and fetches its counts)."""
+    if op in RANKED_DEVICE_OPS and fused:
         return run_op_device_fused(index, decoder, wdata, queries_list, op,
                                    runs, k, store)
-    if op not in ("and", "or"):
-        raise ValueError(f"device engine does not support query type {op}")
     Q = len(queries_list)
-    drows, nterms = device_batch.build_boolean_rows(decoder, queries_list)
+    dev = decoder.device
+    extra = {}
+    if op in ("and", "or"):
+        drows, nterms = device_batch.build_boolean_rows(decoder, queries_list)
+        srows = None
+    elif op in RANKED_DEVICE_OPS:
+        if (op != "ranked_or"
+                and getattr(wdata, "block_maxw", None) is not None):
+            # the decoder's memoizing cache is reused: row construction
+            # is untimed, and a fresh cache would decode every surviving
+            # block again
+            t0 = time.perf_counter()
+            if prune_engine == "device":
+                drows, srows, pstats = bmw_device.build_pruned_rows_device(
+                    decoder.lazy_cache, index, wdata, queries_list, k,
+                    device=dev)
+            else:
+                drows, srows, pstats = bmw.build_pruned_rows(
+                    decoder.lazy_cache, index, wdata, queries_list, k)
+            extra = {
+                "postings_kept": str(pstats["postings_kept"]),
+                "postings_total": str(pstats["postings_total"]),
+                "blocks_kept": str(pstats["blocks_kept"]),
+                "blocks_total": str(pstats["blocks_total"]),
+                "prune_rows_host_s": f"{time.perf_counter() - t0:.3f}",
+                "prune_engine": prune_engine,
+            }
+        else:
+            drows, srows = device_batch.build_ranked_rows(
+                index, decoder, wdata, queries_list)
+    else:
+        raise ValueError(f"device engine does not support query type {op}")
     buckets, widest = [], 0
     for P, idxs in sorted(
         device_batch.bucket_queries([len(r) for r in drows]).items()
     ):
         d = device_batch.pad_batch([drows[i] for i in idxs],
                                    device_batch.PAD_DOC, np.int32)
-        buckets.append((torch.from_numpy(d).to(decoder.device),
-                        torch.from_numpy(nterms[idxs]).to(decoder.device)))
+        if srows is None:
+            aux = nterms[idxs]
+        else:
+            aux = device_batch.pad_batch([srows[i] for i in idxs], 0.0,
+                                         np.float32)
+        buckets.append((torch.from_numpy(d).to(dev),
+                        torch.from_numpy(aux).to(dev)))
         widest = max(widest, P)
+    shape = (Q, widest, len(buckets))
+    if srows is not None:
+        def one_pass():
+            return [tuple(x.cpu().numpy() for x in
+                          device_batch.ranked_union_topk(d, s, k))
+                    for d, s in buckets]
+
+        t_us, _ = _timed_passes(one_pass, runs, Q)
+        return percentiles(t_us), shape, extra
     pick = 0 if op == "and" else 1
 
     def one_pass():
@@ -148,8 +209,80 @@ def run_op_device(index, decoder, wdata, queries_list, op, runs, k,
         return torch.cat(counts).cpu().numpy() if counts else None
 
     t_us, total = _timed_passes(one_pass, runs, Q)
-    return percentiles(t_us), (Q, widest, len(buckets)), {
+    return percentiles(t_us), shape, {
         "total_results": str(int(total.sum()) if total is not None else 0)}
+
+
+def run_op(index, decoder, wdata, queries_list, op, runs, k):
+    """Host engine.  Timings are DECODE-INCLUSIVE for the skip-aware
+    ops (and/or/_freq via the lazy block engine, wand/maxscore via
+    lazy cursors, ranked_and via the lazy AND): each query starts from
+    a fresh block cache, so the reported latency covers exactly the
+    block decodes the query's skips landed in — the reference's timed
+    runs likewise decode blocks inside the enumerators
+    (src/queries.cpp:15-61).  ranked_or is exhaustive by definition and
+    keeps the pre-decoded warm cache (its decode, on the decoder's
+    device, is the untimed warm-up, like the reference's index warm,
+    queries.cpp:74-83).  The lazy ops leave the sums of their block and
+    posting counters over the timed passes in ``decoder._lazy_totals``."""
+    if op not in HOST_OPS:
+        raise ValueError(f"unsupported query type {op}")
+    lazy = op != "ranked_or"
+    if lazy:
+        cache_factory = type(decoder.lazy_cache)
+    else:
+        all_terms = sorted({int(t) for q in queries_list for t in q})
+        decoder.decode_docids(all_terms)
+        decoder.decode_freqs(all_terms)
+
+    def one_query_lazy(q):
+        cache = cache_factory(index)  # fresh: decode is timed per query
+        t0 = time.perf_counter()
+        if op in ("and", "and_freq"):
+            res = boolean.and_query_lazy(cache, q)
+            if op == "and_freq" and res.shape[0]:
+                boolean.matched_freqs_lazy(cache, q, res)
+        elif op in ("or", "or_freq"):
+            res = boolean.or_query_lazy(cache, q)
+            if op == "or_freq" and res.shape[0]:
+                boolean.matched_freqs_lazy(cache, q, res)
+        else:
+            decoder._lazy_cache = cache  # fresh per query: decode included
+            if op == "wand":
+                ranked.wand(index, decoder, wdata, q, k)
+            elif op == "ranked_and":
+                ranked.ranked_and(index, decoder, wdata, q, k)
+            else:
+                ranked.maxscore(index, decoder, wdata, q, k)
+        el = (time.perf_counter() - t0) * 1e6
+        tot = decoder._lazy_totals
+        if tot is not None:
+            tot["docs_blocks"] += cache.docs_blocks_decoded
+            tot["freqs_blocks"] += cache.freqs_blocks_decoded
+            tot["postings_scored"] += cache.postings_scored
+        return el
+
+    def one_query_warm(q):
+        t0 = time.perf_counter()
+        ranked.ranked_or(index, decoder, wdata, q, k)
+        return (time.perf_counter() - t0) * 1e6
+
+    one_query = one_query_lazy if lazy else one_query_warm
+
+    def one_pass():
+        return [one_query(q) for q in queries_list]
+
+    decoder._lazy_totals = None
+    one_pass()  # untimed warmup run (queries.cpp:29-32 discards first)
+    if lazy:
+        # aggregated pruning counters across all timed queries
+        decoder._lazy_totals = {
+            "docs_blocks": 0, "freqs_blocks": 0, "postings_scored": 0,
+        }
+    t_us = []
+    for _ in range(runs):
+        t_us = one_pass()
+    return percentiles(t_us)
 
 
 def main(argv=None):
@@ -163,8 +296,9 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument(
         "--engine", choices=["host", "native", "device"], default="device",
-        help="device (whole-batch sort-merge on the card; the only engine "
-        "ported so far)",
+        help="device: whole-batch sort-merge passes on --device "
+        "(query/device_serve.py, query/device_batch.py); host: per-query "
+        "numpy engines over the lazy block cache; native: not ported",
     )
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
@@ -189,9 +323,19 @@ def main(argv=None):
     common.log(f"running {len(queries_list)} queries on {device_name(dev)}")
     records = []
     for op in args.query_types.split(":"):
-        stats, shape, extra = run_op_device(
-            index, decoder, wdata, queries_list, op, args.runs, args.k
-        )
+        extra = {}
+        if args.engine == "device":
+            stats, shape, extra = run_op_device(
+                index, decoder, wdata, queries_list, op, args.runs, args.k
+            )
+            extra = {"batch_shape": "x".join(map(str, shape)), **extra}
+        else:
+            stats = run_op(
+                index, decoder, wdata, queries_list, op, args.runs, args.k
+            )
+            if decoder._lazy_totals is not None:
+                extra = {key: str(v)
+                         for key, v in decoder._lazy_totals.items()}
         rec = {
             "type": op,
             "index": args.index_type,
@@ -199,7 +343,6 @@ def main(argv=None):
             "queries": str(len(queries_list)),
             "runs": str(args.runs),
             **{k: f"{v:.2f}" for k, v in stats.items()},
-            "batch_shape": "x".join(map(str, shape)),
             **extra,
             "device": device_name(dev),
         }

@@ -10,7 +10,11 @@ top-k scores equal the reference store's, and lie within the
 reference's own tolerance (rtol 2e-4, atol 1e-5,
 tests/test_device_serve.py:87) of the host oracle ``ranked_or``.
 Docids are compared wherever the score is not tied within the row's
-top k + 1.
+top k + 1.  With Block-Max pruning (``prune=True`` and a lazy cache)
+the top-k stays what it was; the survival masks are the port's own
+(tests/test_torch_bmw.py says where they differ from the reference's),
+so the pruned block counts are held to the reference's only where the
+masks agree.
 """
 
 import os
@@ -23,11 +27,14 @@ import torch
 from dint_tpu.index import dint_index as j_di
 from dint_tpu.query import device_batch as j_db
 from dint_tpu.query import device_serve as j_ds
+from dint_tpu.query import lazy_decode as j_lazy
 from dint_tpu.query import ranked as j_ranked
 from dint_tpu.query.term_decode import TermDecoder as JTermDecoder
 from dint_tpu_torch.index import dint_index as t_di
 from dint_tpu_torch.query import device_batch as t_db
+from dint_tpu_torch.query import bmw_device as t_bmwd
 from dint_tpu_torch.query import device_serve as t_ds
+from dint_tpu_torch.query import lazy_decode as t_lazy
 from dint_tpu_torch.query import ranked as t_ranked
 from dint_tpu_torch.query.term_decode import TermDecoder
 from dint_tpu_torch.tools import queries as t_queries
@@ -290,19 +297,16 @@ def test_store_layout_matches_reference(stores):
 
 
 def unpruned_stats(ref):
-    """The reference's batch stats as the port reports them: with
-    nothing pruned its kept and total block counts are one count."""
-    ref = dict(ref)
+    """The reference's batch stats, which the port reports under the same
+    names; with nothing pruned the kept and total block counts agree."""
     assert ref["blocks_kept"] == ref["blocks_total"]
-    ref["blocks"] = ref.pop("blocks_kept")
-    del ref["blocks_total"]
-    return ref
+    return dict(ref)
 
 
 def test_batch_metadata_matches_reference(stores, built):
     ts, js, _ = stores
     queries = built[3]
-    tb, tsg, tst = ts._batch_metadata(queries, K)
+    tb, tsg, tst = ts._batch_metadata(queries, K, prune=False)
     jb, jsg, jst = js._batch_metadata(queries, K, prune=False)
     assert tsg == jsg and tb.keys() == jb.keys()
     assert tst == unpruned_stats(jst)
@@ -356,14 +360,99 @@ def test_ranked_or_batch_matches_store(stores, built):
         np.testing.assert_array_equal(a, b)
 
 
-def test_pruned_ranked_topk_raises(stores):
-    ts, _, _ = stores
-    with pytest.raises(NotImplementedError, match="BMW"):
-        ts.ranked_topk([[0, 1]], k=K, prune=True, lazy_cache=object())
-    # without a lazy cache prune=True has nothing to prune with
-    a, _, _ = ts.ranked_topk([[0, 1]], k=K, prune=True)
-    b, _, _ = ts.ranked_topk([[0, 1]], k=K, prune=False)
-    np.testing.assert_array_equal(a[0], b[0])
+def prunes(built, kept, total) -> bool:
+    """Whether the counts show pruning as this fixture allows it: the
+    uniform collection loses blocks; on the skewed one every block of
+    these short lists can reach the top k, and none may be lost."""
+    return kept < total if "uniform" in built[4] else kept <= total
+
+
+def test_pruned_ranked_topk_raises(stores, built):
+    """``prune=True`` with a lazy cache no longer raises: it serves the
+    same top-k from fewer blocks.  Without a lazy cache, or without the
+    block-max sidecar, there is nothing to prune with."""
+    ts, _, tdec = stores
+    ti, _, wd, queries, _ = built
+    a, ad, ast = ts.ranked_topk(queries, k=K, prune=True,
+                                lazy_cache=tdec.lazy_cache)
+    b, bd, bst = ts.ranked_topk(queries, k=K, prune=False)
+    c, _, cst = ts.ranked_topk(queries, k=K, prune=True)
+    assert ast["blocks_total"] == bst["blocks_total"] == cst["blocks_kept"]
+    assert prunes(built, ast["blocks_kept"], ast["blocks_total"])
+    assert "device_queries" in ast and "device_queries" not in cst
+    for i in range(len(queries)):
+        # the survivors hold every top-k doc with its complete score, and
+        # the bucket sums add in docid order whatever else was dropped
+        np.testing.assert_array_equal(a[i], b[i], err_msg=str(queries[i]))
+        np.testing.assert_array_equal(c[i], b[i])
+        if a[i].size:  # docids wherever the score is untied
+            keep = np.r_[a[i][1:] != a[i][:-1], True] & np.r_[
+                True, a[i][1:] != a[i][:-1]]
+            np.testing.assert_array_equal(ad[i][keep], bd[i][keep])
+    bare = t_ds.DeviceServingStore(
+        ti, tdec, t_ranked.WandData(wd.norm_lens, wd.max_term_weight),
+        terms=[0, 1])
+    _, _, st = bare.ranked_topk([[0, 1]], k=K, prune=True,
+                                lazy_cache=tdec.lazy_cache)
+    assert st["blocks_kept"] == st["blocks_total"]
+
+
+def test_pruned_batch_metadata_against_reference(stores, built):
+    """Hints, fallbacks and event width equal the reference's; the kept
+    block ids are the reference's wherever the survival masks agree, and
+    the port's masks are the float64 bound's (tests/test_torch_bmw.py)."""
+    ts, js, tdec = stores
+    ti, ji, wd, queries, _ = built
+    tb, tsg, tst = ts._batch_metadata(queries, K, prune=True,
+                                      lazy_cache=t_lazy.BlockCache(ti))
+    jb, jsg, jst = js._batch_metadata(queries, K, prune=True,
+                                      lazy_cache=j_lazy.BlockCache(ji))
+    assert tsg == jsg
+    for key in ("blocks_total", "single_term_queries", "device_queries",
+                "host_fallback_queries", "event_width"):
+        assert tst[key] == jst[key], key
+    assert prunes(built, tst["blocks_kept"], tst["blocks_total"])
+    # per query: the port's masks against the reference's
+    multi = [qi for qi in range(len(queries)) if qi not in tsg]
+    hints = [ts.tau_from_tables(t_ranked._query_weights(ti, queries[qi]), K)
+             for qi in multi]
+    tk, ttau, _ = t_bmwd.prune_blocks_device(
+        t_lazy.BlockCache(ti), ti, wd, [queries[qi] for qi in multi], K,
+        taus_hint=hints, device="cpu")
+    from dint_tpu.query import bmw_device as j_bmwd
+    jk, jtau, _ = j_bmwd.prune_blocks_device(
+        j_lazy.BlockCache(ji), ji, wd, [queries[qi] for qi in multi], K,
+        taus_hint=hints)
+    np.testing.assert_array_equal(ttau, jtau)
+    same = all(np.array_equal(tk[i][t], jk[i][t])
+               for i in range(len(multi)) if tk[i] is not None
+               for t in tk[i])
+    if same:
+        assert tst == jst and tb.keys() == jb.keys()
+        for P in tb:
+            np.testing.assert_array_equal(tb[P][1], jb[P][1])
+            np.testing.assert_array_equal(tb[P][2], jb[P][2])
+    kept = sum(int(m.sum()) for k in tk if k is not None for m in k.values())
+    assert kept == tst["blocks_kept"]
+
+
+def test_pruned_topk_matches_reference_store_and_oracle(stores, built):
+    ts, js, tdec = stores
+    ti, ji, wd, queries, _ = built
+    t_s, t_d, t_st = ts.ranked_topk(queries, k=K, prune=True,
+                                    lazy_cache=t_lazy.BlockCache(ti))
+    j_s, _, j_st = js.ranked_topk(queries, k=K, prune=True,
+                                  lazy_cache=j_lazy.BlockCache(ji))
+    assert t_st["upload_bytes"] == 8 * sum(
+        b[1].shape[0] for b in ts._batch_metadata(
+            queries, K, prune=True, lazy_cache=tdec.lazy_cache)[0].values())
+    for i, q in enumerate(queries):
+        assert t_s[i].shape == j_s[i].shape, (i, q)
+        np.testing.assert_allclose(t_s[i], j_s[i], rtol=2e-4, atol=1e-5)
+        want = t_ranked.ranked_or(ti, tdec, wd, q, K)
+        assert t_s[i].shape == want.shape
+        np.testing.assert_allclose(t_s[i], want, rtol=2e-4, atol=1e-5)
+        assert t_d[i].shape == t_s[i].shape
 
 
 # ---------------------------------------------------------------------------
@@ -409,19 +498,60 @@ def test_queries_cli_device_engine_on_cpu(built, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--engine", "host"], "item 1"),
-    (["--engine", "native"], "item 5"),
-])
+    (["--engine", "host"], None),
+    (["--engine", "native"], "item 4"),
+], ids=["args0-item 1", "args1-item 5"])
 def test_queries_cli_unported_engines_raise(built, tmp_path, args, match):
+    """The native engine still names its ROADMAP item; the host engine,
+    ported since, answers."""
     idx, wand, qfile = _cli_files(built, tmp_path)
+    argv = ["single_packed_dint", "ranked_or", idx, wand, "--queries", qfile,
+            "--device", "cpu", "--runs", "1", *args]
+    if match is None:
+        (rec,) = t_queries.main(argv)
+        assert rec["engine"] == "host" and float(rec["avg"]) > 0
+        return
     with pytest.raises(NotImplementedError, match=match):
-        t_queries.main(["single_packed_dint", "ranked_or", idx, wand,
-                        "--queries", qfile, "--device", "cpu", *args])
+        t_queries.main(argv)
 
 
 @pytest.mark.parametrize("op", ["wand", "maxscore"])
 def test_queries_cli_pruned_ops_raise(built, tmp_path, op):
+    """``wand`` and ``maxscore`` no longer raise on the device engine:
+    they serve through the pruned fused store."""
     idx, wand, qfile = _cli_files(built, tmp_path)
-    with pytest.raises(NotImplementedError, match="BMW"):
-        t_queries.main(["single_packed_dint", op, idx, wand, "--queries",
-                        qfile, "--device", "cpu"])
+    recs = t_queries.main(["single_packed_dint", f"{op}:ranked_or", idx, wand,
+                           "--queries", qfile, "--device", "cpu", "--runs",
+                           "1"])
+    pruned, full = recs
+    assert pruned["type"] == op and pruned["engine_variant"] == "fused-store"
+    assert prunes(built, int(pruned["blocks_kept"]),
+                  int(pruned["blocks_total"]))
+    assert pruned["blocks_total"] == full["blocks_total"] == full["blocks_kept"]
+    assert {"device_queries", "host_fallback_queries", "event_width",
+            "prune_rows_host_s"} <= set(pruned)
+    assert "device_queries" not in full
+    assert int(pruned["metadata_upload_bytes"]) <= int(
+        full["metadata_upload_bytes"])
+
+
+@pytest.mark.parametrize("prune_engine", ["device", "host"])
+def test_row_upload_pruned_path(built, prune_engine):
+    """``run_op_device(fused=False)``: rows of the surviving blocks,
+    uploaded and sort-merged."""
+    ti, _, wd, queries, _ = built
+    dec = TermDecoder(ti, device="cpu")
+    stats, shape, extra = t_queries.run_op_device(
+        ti, dec, wd, queries, "wand", 1, K, fused=False,
+        prune_engine=prune_engine)
+    assert shape[0] == len(queries) and stats["avg"] > 0
+    assert extra["prune_engine"] == prune_engine
+    assert prunes(built, int(extra["postings_kept"]),
+                  int(extra["postings_total"]))
+    assert prunes(built, int(extra["blocks_kept"]),
+                  int(extra["blocks_total"]))
+    _, _, plain = t_queries.run_op_device(ti, dec, wd, queries, "ranked_or",
+                                          1, K, fused=False)
+    assert plain == {}
+    with pytest.raises(ValueError, match="does not support"):
+        t_queries.run_op_device(ti, dec, wd, queries, "ranked_and", 1, K)

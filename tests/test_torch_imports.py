@@ -51,6 +51,8 @@ def test_port_file_list_is_complete():
                  "dint_tpu_torch/query/term_decode.py",
                  "dint_tpu_torch/query/device_batch.py",
                  "dint_tpu_torch/query/device_serve.py",
+                 "dint_tpu_torch/query/bmw.py",
+                 "dint_tpu_torch/query/bmw_device.py",
                  "dint_tpu_torch/tools/create_freq_index.py",
                  "dint_tpu_torch/tools/create_wand_data.py",
                  "dint_tpu_torch/tools/queries.py",
@@ -75,6 +77,7 @@ def test_port_file_list_is_complete():
     "dint_tpu_torch.kernels.unpack_device", "dint_tpu_torch.query.native_host",
     "dint_tpu_torch.tools.decode", "dint_tpu_torch.tools.bench",
     "dint_tpu_torch.tools.kernel_ablate",
+    "dint_tpu_torch.query.bmw", "dint_tpu_torch.query.bmw_device",
 ])
 def test_serving_modules_import_without_jax(module):
     """Each module of the serving and bench slices imports in a fresh interpreter

@@ -56,6 +56,25 @@ def test_row_is_the_row_inside_the_tile():
     np.testing.assert_array_equal(out, want)
 
 
+@pytest.mark.parametrize("rows,rt", [(100, 64), (37, 1024), (2500, 1024),
+                                     (1000, 7), (5, 1)])
+@pytest.mark.parametrize("salt", [0, 0xFFFFFFFF])
+def test_plain_tile_with_a_ragged_last_tile(rows, rt, salt):
+    """The plain version takes any row count: the last tile may be cut
+    short.  (The wrapper keeps whole tiles, as the reference's grid
+    does; chip_smoke.py holds the kernel's C entry to these shapes.)"""
+    got = t_sp.store_tile_plain(t_sp.salt_tensor(salt, "cpu"), rows, rt)
+    assert got.shape == (rows, t_sp.ROW_LANES) and got.dtype == torch.int32
+    r = np.arange(rows, dtype=np.int64)[:, None]
+    want = (np.arange(256)[None, :] + 7 * (r % rt) + salt + r // rt) & MASK
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    whole = (rows // rt) * rt
+    if whole:  # the whole tiles are what the wrapper writes
+        np.testing.assert_array_equal(
+            got.numpy()[:whole],
+            t_sp.store_tile(t_sp.salt_tensor(salt, "cpu"), whole, rt).numpy())
+
+
 @pytest.mark.parametrize("rows,rt,runs", [(2048, 1024, 3), (256, 128, 5),
                                           (128, 128, 1)])
 def test_chain_salt_matches_reference(rows, rt, runs):

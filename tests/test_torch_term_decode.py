@@ -204,7 +204,7 @@ def test_plan_stream_raises_with_the_build_error(monkeypatch):
 
     monkeypatch.setitem(nativebuild.errors, "libdintplan.so",
                         "dint_planner.cpp:1: error: boom")
-    with pytest.raises(RuntimeError, match="boom.*item 5"):
+    with pytest.raises(RuntimeError, match="boom.*item 4"):
         t_dl.plan_stream(np.zeros(4, np.uint8), [0], [2], [1], [0], [16],
                          None)
 
@@ -268,8 +268,11 @@ def test_term_decoder_after_load_and_in_pieces(serve_indexes, tmp_path):
 def test_term_decoder_lazy_cache_and_device(serve_indexes, monkeypatch):
     ti = serve_indexes[("uniform", "single")][0]
     dec = t_td.TermDecoder(ti, device="cpu")
-    with pytest.raises(NotImplementedError, match="BMW"):
-        dec.lazy_cache
+    from dint_tpu_torch.query.lazy_decode import BlockCache
+
+    cache = dec.lazy_cache  # the host block cache, memoised
+    assert isinstance(cache, BlockCache) and dec.lazy_cache is cache
+    assert cache.index is ti and dec._lazy_totals is None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         t_td.TermDecoder(ti)
