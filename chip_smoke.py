@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card: the vroom
 gather decode, the whole bench (gather and ladder engines, store probe),
-the one-hot kernel ablation and fused ranked query serving.
+the one-hot kernel ablation, fused ranked query serving, the raw
+chain-scan engine and the eleven zoo list types.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
 
@@ -91,10 +92,26 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     the oracle's sums over the device engine's AND members, the lazy
     ``and``/``or`` the device counts; each op once through
     ``tools.queries.run_op``;
-14. torch.profiler traces of 3 serving passes, unpruned and pruned.
+14. torch.profiler traces of 3 serving passes, unpruned and pruned;
+15. raw engine: ``decode_stream(..., engine="raw", runs=10,
+    check_collection, device="cuda")`` for both types, exact over every
+    list; the bucket census (units clean and dirty, tiles per (W, N, b))
+    and a torch.profiler trace of 2 runs (wall against device busy);
+16. zoo: the eleven ``VROOM_ZOO`` types encoded from the phase-2
+    collection (``tools.encode.encode_zoo`` with a process per core,
+    under ``.chip_smoke/zoo/``), each decoded by ``tools.decode``'s
+    device path through the ladder image at 2000 chained runs and, for
+    the eight types with one, through its wire-structure engine at 200,
+    every list checked; ints/s, image bytes an int and cold start per
+    type; torch.profiler traces of the ladder chain and of each wire
+    engine family.
 
-Prints the stats records (one ``{"serve_pruned": ...}`` line among
-them), the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
+Phases 3 and 7 also time ``torch.gather`` (the library call computing
+K1's and K6/K7's gather, without the salt and the n mask) in turns with
+the kernels on the same rows.
+
+Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``
+and ``{"zoo": ...}`` lines among them), the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
 fused class launch) and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
 no card or no checkout around it.
@@ -126,6 +143,19 @@ PROFILE_RUNS = 200
 LADDER_PROFILE_RUNS = 50
 ABLATE_RUNS = 20  # chained runs a variant, tools/kernel_ablate's default
 ONEHOT_PLAIN_ROWS = 512  # plan rows K6/K7 are held to their plain version on
+# The raw chain-scan engine issues some tens of torch ops a tile (the
+# log-step scan of a dirty tile alone some hundred) over hundreds of
+# tiles a run, so a run costs the host tenths of a second: a few runs
+# measure it, 2000 would take the script's whole time limit.
+RAW_RUNS = 10
+RAW_PROFILE_RUNS = 2
+ZOO_RUNS = 2000  # chained runs of a zoo type's ladder image, as the DINT legs
+ZOO_WIRE_RUNS = 200  # chained runs of a wire-structure engine
+ZOO_PROFILE_RUNS = 50
+# the chains profiled: the ladder image (one type stands for all eleven:
+# the engine is the same) and each wire engine family
+ZOO_PROFILED = (("vbyte", False), ("optpfor", True), ("qmx", True),
+                ("simple16", True), ("vbyte", True))
 MASK = 0xFFFFFFFF
 SERVE_TYPE = "multi_packed_dint"  # the index of bench_artifacts/queries.json
 SERVE_RUNS = 10  # timed serving passes after one warm-up
@@ -153,6 +183,8 @@ HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
 SMS, SM_HZ = 132, 1.98e9
 INT32_OPS_PER_S = SMS * 64 * SM_HZ
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (data sheet)
+LIBRARY_GATHER = ("torch.gather(tab, 1, vidx): the same gather, int64 index "
+                  "made beforehand, without the salt add and the n mask")
 
 
 def fail(msg: str) -> None:
@@ -183,13 +215,14 @@ def hbm_rate(name: str) -> float:
 
 
 def build_all():
-    """Build every CUDA kernel library (one nvcc each) and the four
+    """Build every CUDA kernel library (one nvcc each) and the six
     native host libraries concurrently; return the slowest kernel
     build's wall seconds."""
-    from dint_tpu_torch.codecs import native
+    from dint_tpu_torch.codecs import native, zoonative
     from dint_tpu_torch.kernels import cuda_ext, planner_native
     from dint_tpu_torch.query import native_host
     from dint_tpu_torch.stats import native_stats
+    from dint_tpu_torch.utils import bitnative
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -203,6 +236,8 @@ def build_all():
         "native planner": planner_native.get_lib,
         "native stats": native_stats.get_lib,
         "native query host": native_host.get_lib,
+        "native zoo decoders": zoonative.get_lib,
+        "native EF decoder": bitnative.get_lib,
     })
     with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
         futs = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
@@ -499,6 +534,13 @@ def time_kernels(engine, errs, card_name):
     buf = torch.empty((engine.rows, N_OUT), dtype=torch.int32,
                       device=engine.device)
 
+    # the library call beside K1: torch.gather computes its gather
+    # out[r, j] = tab[r, vidx[r, j]] on the same class tensors (its index
+    # must be int64, made here, outside the timing), without K1's salt
+    # add and n mask
+    k1 = next(c for c in engine._classes if c.mode == 32)
+    lib_idx = k1.vidx.to(torch.int64)
+
     def three():
         for c in engine._classes:
             o = buf[c.base : c.base + c.rows]
@@ -514,7 +556,8 @@ def time_kernels(engine, errs, card_name):
            FUSED: lambda: dl.decode_classes(*args, salt, out=buf),
            "three": three,
            "K2_gather16": lambda: cases["K2_gather16"][0](salt),
-           "K3_zero": lambda: cases["K3_zero"][0](salt)}
+           "K3_zero": lambda: cases["K3_zero"][0](salt),
+           "library_gather": lambda: torch.gather(k1.tab, 1, lib_idx)}
     ms = time_in_turns(fns, 50, flush)
     plains = {name: (lambda p=cases[name][1]: p(salt))
               for name in DECODE_KERNELS}
@@ -545,6 +588,8 @@ def time_kernels(engine, errs, card_name):
         })
     out[0]["empty_launch_ms"] = ms["empty"]
     out[0]["empty_launch_blocks"] = k1_blocks
+    out[0]["library_ms"] = ms["library_gather"]
+    out[0]["library_call"] = LIBRARY_GATHER
     out.append({
         "name": FUSED,
         "route": "cuda",
@@ -903,15 +948,24 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
     st = torch.tensor([0x9E3779B9], dtype=torch.int64, device="cuda")
     plain_ms = time_ms(lambda: dl.decode_gather_rows(vi, tbl, nn, st), 1,
                        flush)
-    k1_ms = time_ms(lambda: dl.gather32(v8, tbl, nn, st), 20, flush)
+    # K6, K7, K1 and the library gather on the same rows, in turns
+    vi64 = vi.to(torch.int64)
+    ms = time_in_turns({
+        "K6_onehot_block": lambda: dp.decode_gather_pallas(vi, tbl, nn, st),
+        "K7_onehot_group": lambda: dp.decode_gather_pallas_grid(vi, tbl, nn,
+                                                                st),
+        "K1_gather32": lambda: dl.gather32(v8, tbl, nn, st),
+        "library_gather": lambda: torch.gather(tbl, 1, vi64)}, 10, flush)
+    k1_ms = ms["K1_gather32"]
     rate = hbm_rate(card_name)
     rec["same_rows"] = {
         "rows": R,
         "K1_gather32_ms": k1_ms,
         "K1_bound_ms": kernel_bytes_ops("K1_gather32", R, 256)[0] / rate * 1e3,
+        "library_gather_ms": ms["library_gather"],
     }
     entries = []
-    for name, kern, line, body in kernels:
+    for name, _, line, body in kernels:
         entries.append({
             "name": name,
             "route": "cuda",
@@ -920,12 +974,13 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
             "launches": counts[name],
             "launches_by_path": {"ablate": counts[name]},
             "max_abs_err": errs[name],
-            "ms": time_ms(lambda: kern(vi, tbl, nn, st), 10, flush),
+            "ms": ms[name],
             "plain_ms": plain_ms,
             **bound_entry(R * (3 * 1024 + 4) + 8,
                           2 * 4 * 256 * 256 * R / INT8_TENSOR_OPS_PER_S * 1e3,
                           card_name),
-            "library_ms": None,
+            "library_ms": ms["library_gather"],
+            "library_call": LIBRARY_GATHER,
             "rows": R,
             # what the product reads from shared memory: 32 wgmma a row,
             # each a 2 KiB selector tile and a 256 B plane tile, at 128 B
@@ -936,6 +991,7 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
         log(f"{name} {entries[-1]['ms'] * 1e3:.1f} us on {R} rows (bound "
             f"{entries[-1]['bound_ms'] * 1e3:.1f} us, shared-memory bound "
             f"{entries[-1]['smem_bound_ms'] * 1e3:.1f} us, K1 {k1_ms * 1e3:.1f} us, "
+            f"torch.gather {ms['library_gather'] * 1e3:.1f} us, "
             f"plain {plain_ms:.1f} ms)")
     return rec, counts, entries
 
@@ -1599,6 +1655,137 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
             "pruned": pruned, "host_engine": host}
 
 
+# ---------------------------------------------------------------------------
+# The raw chain-scan engine and the zoo
+# ---------------------------------------------------------------------------
+
+
+def raw_phases(data, base: str, smi: str, device="cuda"):
+    """Phase 15: ``decode_stream(engine="raw")`` for both DINT types on
+    the card, exact over every list; then the bucket census and a
+    torch.profiler trace of a few runs of the same plan.  Returns
+    {type: record}."""
+    import torch
+
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.tools import decode
+
+    out = {}
+    for t in TYPES:
+        stream, dict_file = data[t]
+        reset_launch_counts()
+        rec = decode.decode_stream(t, stream, dict_file, runs=RAW_RUNS,
+                                   check_collection=base + ".docs",
+                                   engine="raw", device=device)
+        counts = launch_counts()
+        if rec.get("check") != "ok":
+            fail(f"raw {t}: collection check did not pass")
+        arena, meta = stream_mod.load_stream(stream)
+        view = decode.load_dictionary(t, dict_file).decode_view()
+        dec = decode.StreamDecoder(arena, meta, view, t.startswith("multi"),
+                                   "raw", device=device)
+        census = dec.engine.census()
+
+        def runs():
+            for _ in range(RAW_PROFILE_RUNS):
+                dec.decode_all()
+
+        prof = profile_device(runs, RAW_PROFILE_RUNS,
+                              os.path.join(CACHE, f"raw_trace.{t}.json"))
+        out[t] = {
+            "type": t, "ints_x_sec": rec["ints_x_sec"],
+            "ns_x_int": rec["ns_x_int"],
+            "num_integers": rec["num_integers"], "runs": rec["runs"],
+            "cold_start_s": rec["cold_start_s"], "check": rec["check"],
+            "census": census, "profile": prof,
+            "kernel_launches": sum(counts.values()),
+            "device": rec["device"], "nvidia_smi": smi,
+        }
+        log(f"raw {t}: {int(rec['ints_x_sec']) / 1e9:.3f} G ints/s, "
+            f"{census['units_clean']} clean / {census['units_dirty']} dirty "
+            f"units, {sum(census['tiles'].values())} tiles")
+        del dec
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_data(base: str):
+    """Every zoo type encoded from the collection under
+    ``.chip_smoke/zoo/`` (kept when present), the lists in a process
+    pool; returns ({type: stream path}, {type: encode seconds})."""
+    from dint_tpu_torch.tools import common, encode
+
+    root = os.path.join(CACHE, "zoo")
+    os.makedirs(root, exist_ok=True)
+    paths, secs = {}, {}
+    for t in common.VROOM_ZOO:
+        paths[t] = os.path.join(root, f"zoo.{t}")
+        if os.path.exists(paths[t] + ".skips.npz"):
+            continue
+        t0 = time.perf_counter()
+        encode.encode_zoo(t, base + ".docs", paths[t],
+                          workers=os.cpu_count() or 1)
+        secs[t] = time.perf_counter() - t0
+        log(f"encoded {t} in {secs[t]:.1f} s")
+    return paths, secs
+
+
+def zoo_phases(base: str, smi: str, device="cuda"):
+    """Phase 16: every zoo type through ``tools.decode``'s device path on
+    the card, the ladder image at ZOO_RUNS chained runs and, for the
+    types with one, the wire-structure engine at ZOO_WIRE_RUNS, each
+    checked against the collection list for list; then torch.profiler
+    traces of the chains of ZOO_PROFILED.  Returns the phase record."""
+    import torch
+
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.tools import common, decode
+
+    t0 = time.perf_counter()
+    paths, enc_s = zoo_data(base)
+    data_s = time.perf_counter() - t0
+    keys = ("ints_x_sec", "ns_x_int", "runs", "plan_bytes", "cold_start_s",
+            "check")
+    types = {}
+    reset_launch_counts()
+    for t in common.VROOM_ZOO:
+        n_ints = None
+        entry = {"stream_bytes": os.path.getsize(paths[t]),
+                 "encode_s": enc_s.get(t)}
+        for wire, runs in ((False, ZOO_RUNS), (True, ZOO_WIRE_RUNS)):
+            if wire and t not in decode.WIRE_ENGINES:
+                continue
+            rec = decode.decode_zoo_device(t, paths[t], runs,
+                                           base + ".docs", wire=wire,
+                                           device=device)
+            if rec.get("check") != "ok":
+                fail(f"zoo {t} (wire={wire}): collection check did not pass")
+            n_ints = int(rec["num_integers"])
+            r = {k: rec[k] for k in keys}
+            r["image_bytes_per_int"] = int(rec["plan_bytes"]) / n_ints
+            entry["wire" if wire else "ladder"] = r
+            torch.cuda.empty_cache()
+        entry["num_integers"] = n_ints
+        entry["stream_bpi"] = 8 * entry["stream_bytes"] / n_ints
+        types[t] = entry
+        log(f"zoo {t}: ladder {int(entry['ladder']['ints_x_sec']) / 1e9:.1f} "
+            f"G ints/s" + (f", wire {int(entry['wire']['ints_x_sec']) / 1e9:.1f}"
+                           f" G ints/s" if "wire" in entry else ""))
+    counts = launch_counts()
+    profiles = {}
+    for t, wire in ZOO_PROFILED:
+        arena, meta = stream_mod.load_stream(paths[t])
+        eng, _ = decode.zoo_device_engine(t, arena, meta, wire, device)
+        key = f"{t}/{'wire' if wire else 'ladder'}"
+        profiles[key] = profile_device(
+            lambda: eng.chain(ZOO_PROFILE_RUNS), ZOO_PROFILE_RUNS,
+            os.path.join(CACHE, f"zoo_trace.{t}.{int(wire)}.json"))
+        del eng
+        torch.cuda.empty_cache()
+    return {"types": types, "profiles": profiles, "data_s": data_s,
+            "kernel_launches": sum(counts.values()), "nvidia_smi": smi}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -1738,12 +1925,23 @@ def main(argv=None) -> int:
     print(json.dumps({"serve_pruned": {**serve["pruned"], "k": TOPK,
                                        "device": kind, "nvidia_smi": smi}}),
           flush=True)
+    torch.cuda.empty_cache()
+
+    # 15. the raw chain-scan engine, both DINT types, exact
+    raw = raw_phases(data, base, smi)
+    print(json.dumps({"raw": raw}), flush=True)
+
+    # 16. the zoo: eleven list types through the ladder image, eight
+    # through their wire engines, exact
+    zoo = zoo_phases(base, smi)
+    print(json.dumps({"zoo": {**zoo, "device": kind}}), flush=True)
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
                "chain_salt": salt, "profile": prof, "bench": bench_rec,
                "bench_legs": bench_legs, "bench_launches": bench_counts,
                "ladder_profile": ladder_prof, "ablation": ablate,
                "ablation_launches": ablate_counts, "serve": serve,
+               "raw": raw, "zoo": zoo,
                "wall_s": time.perf_counter() - t_start}
     log(f"done in {summary['wall_s']:.1f} s")
     if args.out:

@@ -318,6 +318,101 @@ def decode_gather_rows(vidx, table, n, salt):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The ablation form: the whole per-row decode as one-hot products
+# ---------------------------------------------------------------------------
+
+
+def _onehot_dot(idx: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """out[r, q, v] = planes[r, idx[r, q], v] as a one-hot x planes
+    product: idx (R, Q) in [0, D); planes (R, D, V) integers in
+    [0, 255].  The planes are biased by -128 and the product's single 1
+    a column adds the bias back (an index outside [0, D) gives 128).
+    A float32 batched product of these operands is exact: every output
+    is one plane value.  Returns (R, Q, V) float32."""
+    D = planes.shape[1]
+    iota = torch.arange(D, dtype=idx.dtype, device=idx.device)
+    a_t = (idx[:, None, :] == iota[None, :, None]).to(torch.float32)
+    p_t = (planes.transpose(1, 2) - 128).to(torch.float32)  # (R, V, D)
+    return (torch.bmm(p_t, a_t) + 128).transpose(1, 2)
+
+
+def _onehot_hist(bins: torch.Tensor, weights: torch.Tensor,
+                 D: int) -> torch.Tensor:
+    """c[r, d] = sum_q weights[r, q] * [bins[r, q] == d] as a one-hot
+    product (float32, exact for the 0/1 weights of a row)."""
+    iota = torch.arange(D, dtype=bins.dtype, device=bins.device)
+    a = (bins[:, :, None] == iota[None, None, :]).to(torch.float32)
+    return torch.bmm(weights.to(torch.float32)[:, None, :], a)[:, 0]
+
+
+def _cumsum_mxu(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive row cumsum as int32 (the reference forms it as a
+    triangular matrix product; exact either way)."""
+    return torch.cumsum(x.to(torch.int32), dim=-1, dtype=torch.int32)
+
+
+_LOCAL_ROWS_CHUNK = 256  # rows a step: the value one-hot is rows x 256 x n_out
+
+
+def decode_local_rows(tokens, meta, table, n, salt=None, n_out: int = N_OUT):
+    """The per-row decode of a LocalPlan without a hosted vidx: token
+    metadata, the token -> output inversion and the table values are
+    each gathered by a one-hot product (the reference package's ablation
+    form of ``decode_local.py``).  tokens, meta (R, W) int32; table
+    (R, TABLE_CLS) int32 holding u32 bits; n (R,) int32; salt (1,) int64
+    holding a u32 value (or None), mixed into the table words and
+    cancelled after reconstruction.  Returns (R, n_out) int32 holding
+    u32 values.  Plain PyTorch on the tensors' device."""
+    R, W = tokens.shape
+    dev = tokens.device
+    s = (salt.to(torch.int64) & _MASK if salt is not None
+         else torch.zeros(1, dtype=torch.int64, device=dev))
+    out = torch.empty((R, n_out), dtype=torch.int32, device=dev)
+    jpos = torch.arange(n_out, dtype=torch.int32, device=dev)[None, :]
+    for a in range(0, R, _LOCAL_ROWS_CHUNK):
+        b = min(a + _LOCAL_ROWS_CHUNK, R)
+        tok, met = tokens[a:b], meta[a:b]
+        r = b - a
+        # token metadata: planes [len, off_lo, off_hi]
+        off_all = met & _OFF_MASK
+        mplanes = torch.stack([met >> _LEN_SHIFT, off_all & 255,
+                               off_all >> 8], dim=-1)  # (r, W, 3)
+        tm = _onehot_dot(tok, mplanes)
+        lens = tm[:, :, 0].to(torch.int32)
+        offs = (tm[:, :, 1] + tm[:, :, 2] * 256.0).to(torch.int32)
+        ends = _cumsum_mxu(lens)
+
+        # invert token -> output: o_j = #tokens with end <= j, from a
+        # histogram of end positions (padding tokens have len 0 and do
+        # not count) and its prefix sum
+        w_real = (lens > 0).to(torch.int32)
+        bins = torch.clamp(ends - 1, 0, n_out - 1)
+        csum = _cumsum_mxu(_onehot_hist(bins, w_real, n_out))
+        o = torch.cat([torch.zeros((r, 1), dtype=torch.int32, device=dev),
+                       csum[:, : n_out - 1]], dim=1)
+
+        # per-output token attributes: planes [start_lo, start_hi,
+        # off_lo, off_hi]
+        starts = ends - lens
+        tplanes = torch.stack([starts & 255, starts >> 8, offs & 255,
+                               offs >> 8], dim=-1)  # (r, W, 4)
+        ta = _onehot_dot(torch.clamp(o, max=W - 1), tplanes)
+        start_o = (ta[:, :, 0] + ta[:, :, 1] * 256.0).to(torch.int32)
+        off_o = (ta[:, :, 2] + ta[:, :, 3] * 256.0).to(torch.int32)
+        vidx = torch.clamp(off_o + jpos - start_o, 0, TABLE_CLS - 1)
+
+        # values: four u8 planes of the salted u32 local table
+        t32 = (table[a:b].to(torch.int64) + s) & _MASK
+        vplanes = torch.stack([(t32 >> (8 * k)) & 255 for k in range(4)],
+                              dim=-1)  # (r, TABLE_CLS, 4)
+        vv = _onehot_dot(vidx, vplanes).to(torch.int64)  # (r, n_out, 4)
+        val = (vv[:, :, 0] + (vv[:, :, 1] << 8) + (vv[:, :, 2] << 16)
+               + (vv[:, :, 3] << 24) - s) & _MASK
+        out[a:b] = _to_i32(torch.where(jpos < n[a:b, None], val, 0))
+    return out
+
+
 _LIB = "libdintgather.so"
 _N_OUT_OK = (128, 256, 512, 1024)
 

@@ -26,6 +26,12 @@ DINT_KINDS = {
     "multi_overlapped_dint": ("multi", "overlap"),
 }
 
+# vroom whole-list codec types (vroom_env/codecs.hpp CODECS :511-513 + pef)
+VROOM_ZOO = (
+    "u32", "vbyte", "streamvbyte", "maskedvbyte", "varintgb", "qmx",
+    "simple16", "optpfor", "varintg8iu", "interpolative", "pef",
+)
+
 
 def log(msg: str) -> None:
     ts = time.strftime("%Y-%m-%d %H:%M:%S")

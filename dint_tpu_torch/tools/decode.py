@@ -4,16 +4,22 @@ Usage (mirrors vroom_env/decode.cpp:202-263):
 
     python -m dint_tpu_torch.tools.decode <type> <encoded_file>
         [--dict DICT_FILE] [--runs R] [--check-collection FILE]
-        [--engine local|ladder] [--device cuda|cpu]
+        [--engine local|ladder|raw|device|host] [--wire]
+        [--device cuda|cpu]
 
 Loads the encoded stream + skip sidecar + dictionary, builds the serving
 image (engine=local: the dictionary-gather image of the native planner,
 decoded by K1-K3; engine=ladder: the canonical ladder image of the
-native unit decoder, unpacked by PyTorch ops), uploads it, runs one
+native unit decoder, unpacked by PyTorch ops; engine=raw: the chain
+scan over raw tokens, PyTorch ops), uploads it, runs one
 warm-up chain of R salted runs and then R timed runs, and prints the
 reference's stats record {filename, num_sequences, num_integers, type,
 tot_elapsed_time, ns_x_int, ints_x_sec} (vroom_env/statistics.hpp:7-34)
 plus the keys the reference package adds and the device it ran on.
+
+The vroom zoo types (u32, vbyte, ..., pef) decode on the card through
+the ladder image (``--engine device``, the default) or their
+wire-structure engines (``--wire``), or on the host (``--engine host``).
 """
 
 from __future__ import annotations
@@ -36,13 +42,8 @@ from ..dictionary.dictionary import (
     RectangularDictionary,
 )
 from ..index import stream as stream_mod
-from ..kernels import decode_local
+from ..kernels import decode_local, pipeline
 from . import common
-
-_NOT_PORTED = {
-    "raw": "ROADMAP.md 'Modules still to port' item 1 (the raw chain-scan "
-           "engine, kernels/decode_xla.py + kernels/pipeline.py)",
-}
 
 
 @dataclass
@@ -98,24 +99,49 @@ def units_from_meta(
 
 
 class StreamDecoder:
-    """Device decode of a full encoded stream (engine='local'): the
-    serving image is planned once at load (native plan2, cached beside
-    the stream in the reference package's .npz format) and decoded by
-    the width-class kernels on ``device``."""
+    """Device decode of a full encoded stream on ``device``.
+
+    engine='local' (default): the serving image is planned once at load
+    (native plan2, cached beside the stream in the reference package's
+    .npz format) and decoded by the width-class kernels.  engine='raw':
+    the general chain-scan path over raw tokens
+    (``kernels/decode_xla.py`` through ``kernels/pipeline.py``, PyTorch
+    ops), kept as the structure-discovering baseline."""
+
+    ENGINES = ("local", "raw")
 
     def __init__(self, arena: np.ndarray, meta: stream_mod.StreamMeta,
                  view: DecodeView, multi: bool, engine: str = "local",
                  plan_cache: str = None, device="cuda"):
-        if engine != "local":
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet: "
-                f"{_NOT_PORTED.get(engine, 'unknown engine')}"
-            )
+        if engine not in self.ENGINES:
+            raise ValueError(f"engine {engine!r} not in {self.ENGINES}")
         self.device = resolve_device(device)
         self.meta = meta
+        self.kind_engine = engine
         self.layout = units_from_meta(arena, meta, multi)
         lay = self.layout
         t0 = time.perf_counter()
+        if engine == "raw":
+            buckets = []
+            for bits in (16, 8):
+                m = lay.b_bits == bits
+                if not m.any():
+                    continue
+                bks = pipeline.plan_buckets(
+                    arena, lay.starts[m], lay.byte_lens[m], lay.n[m],
+                    lay.ctx[m], bits,
+                )
+                # remap bucket indices back to global unit ids
+                gids = np.flatnonzero(m)
+                for bk in bks:
+                    bk.indices = gids[bk.indices]
+                buckets.extend(bks)
+            self.engine = pipeline.DecodeEngine(view, buckets,
+                                                device=self.device)
+            self.plan_bytes = 0
+            self._sync()
+            self.cold_start_s = time.perf_counter() - t0
+            return
         img_cache = (
             plan_cache.replace(".plan.", ".image.") if plan_cache else None
         )
@@ -132,9 +158,12 @@ class StreamDecoder:
                     pass
         self.engine = decode_local.ImageDecodeEngine(img, device=self.device)
         self.plan_bytes = img.device_bytes()
+        self._sync()
+        self.cold_start_s = time.perf_counter() - t0
+
+    def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.cold_start_s = time.perf_counter() - t0
 
     def decode_all(self):
         return self.engine.decode_all()
@@ -144,7 +173,30 @@ class StreamDecoder:
         per run).  Each run's salt is a u32 reduction over the previous
         run's output, so every run is distinct, fully materialized work.
         One warm-up chain first; on the card the timed chain is measured
-        with CUDA events, on the CPU with the host clock."""
+        with CUDA events, on the CPU with the host clock.
+
+        engine='raw': one checked pass, then ``runs`` full passes, each
+        forced by fetching one element of its last tile's output to the
+        host (the reference's discipline)."""
+        if self.kind_engine == "raw":
+            total_ints = self.engine.block_and_check(self.decode_all())
+
+            def passes():
+                for _ in range(runs):
+                    outs = self.decode_all()
+                    _ = int(outs[-1][0].reshape(-1)[0].item())
+
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                passes()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3, total_ints
+            t0 = time.perf_counter()
+            passes()
+            return time.perf_counter() - t0, total_ints
         total_ints = self.engine.total_ints()
         _ = int(self.engine.decode_chain(runs).item())  # warm-up
         if self.device.type == "cuda":
@@ -165,6 +217,12 @@ class StreamDecoder:
         outs = self.decode_all()
         lay = self.layout
         lists = [np.zeros(int(n), dtype=np.uint32) for n in self.meta.n]
+        if self.kind_engine == "raw":
+            for uid, row, k in self.engine.iter_unit_outputs(outs):
+                li = lay.list_id[uid]
+                p = int(lay.pos_in_list[uid])
+                lists[li][p : p + k] = row[:k]
+            return lists
         units = self.engine.gather_units(outs, len(lay.starts), lay.n)
         for uid, vals in enumerate(units):
             li = lay.list_id[uid]
@@ -269,10 +327,6 @@ def decode_stream(
     engine: str = "local",
     device="cuda",
 ):
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: {_NOT_PORTED[engine]}"
-        )
     dev = resolve_device(device)
     kind, _ = common.DINT_KINDS[type_name]
     multi = kind == "multi"
@@ -326,24 +380,218 @@ def decode_stream(
     return rec
 
 
+# zoo types with a device engine: every one through the ladder image
+# (pef with per-block docid bases); WIRE_ENGINES also have a
+# wire-structure engine (``wire=True``)
+DEVICE_ZOO = common.VROOM_ZOO
+WIRE_ENGINES = ("optpfor", "qmx", "simple16", "vbyte", "maskedvbyte",
+                "streamvbyte", "varintgb", "varintg8iu")
+
+
+def _expected_lists(type_name: str, check_collection: str):
+    expect, _ = common.gap_lists_of(check_collection)
+    if type_name == "pef":
+        from ..utils import gaps as gap_mod
+
+        expect = [gap_mod.gaps_to_docs(g) for g in expect]
+    return expect
+
+
+def zoo_device_engine(type_name: str, arena, meta, wire: bool = False,
+                      device="cuda"):
+    """(engine, plan) of a zoo stream on ``device``.  By default every
+    type goes through the ladder image (``plan_ladder``: host-decode once
+    at load, re-pack at no-straddle ladder widths); ``wire=True`` takes
+    the wire-structure engine of the types that have one
+    (``WIRE_ENGINES``): ``UnpackEngine`` for optpfor and qmx,
+    ``Simple16Engine``, and ``ByteClassEngine`` for the five byte
+    codecs."""
+    from ..kernels import unpack_device as ud
+
+    if type_name not in DEVICE_ZOO:
+        raise ValueError(f"{type_name!r} is not a zoo type")
+    if not wire or type_name not in WIRE_ENGINES:
+        plan = ud.plan_ladder(type_name, arena, meta)
+        return ud.UnpackEngine(plan, device=device), plan
+    if type_name == "simple16":
+        plan = ud.plan_simple16(arena, meta)
+        return ud.Simple16Engine(plan, device=device), plan
+    if type_name in ("optpfor", "qmx"):
+        planner = ud.plan_optpfor if type_name == "optpfor" else ud.plan_qmx
+        plan = planner(arena, meta)
+        return ud.UnpackEngine(plan, device=device), plan
+    plan = ud.plan_byteclass(type_name, arena, meta)
+    return ud.ByteClassEngine(plan, device=device), plan
+
+
+def decode_zoo_device(type_name: str, encoded_file: str, runs: int,
+                      check_collection=None, wire: bool = False,
+                      device="cuda"):
+    """Device decode of a zoo stream (``zoo_device_engine``): ``runs``
+    chained, salted runs timed after one warm-up chain, and the stats
+    record; with ``check_collection`` the whole stream is decoded once
+    more and compared with the collection, list for list."""
+    dev = resolve_device(device)
+    arena, meta = stream_mod.load_stream(encoded_file)
+    common.log("planning width classes...")
+    t_plan0 = time.perf_counter()
+    eng, plan = zoo_device_engine(type_name, arena, meta, wire, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    cold_start_s = time.perf_counter() - t_plan0
+    common.log(f"decoding (engine=device, wire={wire}, "
+               f"{len(plan.classes)} classes, device={device_name(dev)})...")
+    elapsed = eng.timed_chain(runs)
+    total_ints = plan.total_ints
+    per_run = elapsed / runs
+    ns_x_int = per_run * 1e9 / max(total_ints, 1)
+    rec = {
+        "filename": encoded_file,
+        "num_sequences": str(meta.num_lists),
+        "num_integers": str(total_ints),
+        "type": type_name,
+        "tot_elapsed_time": f"{per_run}",
+        "ns_x_int": f"{ns_x_int}",
+        "ints_x_sec": str(int(1e9 / max(ns_x_int, 1e-12))),
+        "runs": str(runs),
+        "engine": "device",
+        # the device image when the engine compiles one (ladder, folded
+        # optpfor), else the wire-faithful class arrays
+        "plan_bytes": str(getattr(eng, "device_bytes", 0)
+                          or plan.plan_bytes()),
+        "cold_start_s": f"{cold_start_s:.3f}",
+        "wire": wire,
+        "device": device_name(dev),
+    }
+    if check_collection:
+        got = eng.decode_all_ordered()
+        pos = 0
+        for i, e in enumerate(_expected_lists(type_name, check_collection)):
+            if not np.array_equal(got[pos : pos + e.shape[0]], e):
+                raise SystemExit(f"MISMATCH in list {i}")
+            pos += e.shape[0]
+        rec["check"] = "ok"
+        common.log("verification ok")
+    common.stats_line(rec)
+    return rec
+
+
+def decode_zoo(type_name: str, encoded_file: str, runs: int,
+               check_collection=None):
+    """Host (numpy + native) decode of the whole-list zoo/pef types."""
+    from ..index import vroom_zoo
+
+    arena, meta = stream_mod.load_stream(encoded_file)
+    total_ints = int(meta.n.astype(np.int64).sum())
+    lists = [None] * meta.num_lists
+
+    # self-delimiting byte codecs: excise every list's payload (their
+    # byte lengths are sidecar state) into one contiguous buffer and
+    # decode the WHOLE FILE in one vectorized pass — per-list numpy
+    # fixed costs would otherwise dominate short-list collections
+    offs = meta.payload_off.astype(np.int64)
+    lens = meta.payload_len.astype(np.int64)
+    batched_whole = (
+        type_name in ("vbyte", "maskedvbyte") and meta.num_lists > 0
+    )
+
+    def one_pass():
+        if batched_whole:
+            from ..codecs import blocks as blocks_mod
+
+            flat = np.concatenate(
+                [arena[offs[i] : offs[i] + lens[i]]
+                 for i in range(meta.num_lists)]
+            )
+            dec = blocks_mod.CODECS[type_name][1]
+            vals, _ = dec(flat, 0, total_ints, blocks_mod.UNKNOWN)
+            cuts = np.cumsum(meta.n.astype(np.int64))[:-1]
+            parts = np.split(vals, cuts)
+            for i in range(meta.num_lists):
+                lists[i] = parts[i]
+            return
+        for i in range(meta.num_lists):
+            n = int(meta.n[i])
+            start = int(meta.payload_off[i])
+            if type_name == "pef":
+                lists[i] = vroom_zoo.decode_list_pef(
+                    arena, start, int(meta.payload_len[i]), n,
+                    int(meta.universe[i]),
+                )
+            else:
+                lists[i] = vroom_zoo.decode_list_zoo(type_name, arena,
+                                                     start, n)
+
+    one_pass()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        one_pass()
+    t1 = time.perf_counter()
+    per_run = (t1 - t0) / runs
+    ns_x_int = per_run * 1e9 / max(total_ints, 1)
+    rec = {
+        "filename": encoded_file,
+        "num_sequences": str(meta.num_lists),
+        "num_integers": str(total_ints),
+        "type": type_name,
+        "tot_elapsed_time": f"{per_run}",
+        "ns_x_int": f"{ns_x_int}",
+        "ints_x_sec": str(int(1e9 / ns_x_int)),
+        "runs": str(runs),
+        "engine": "host",
+        "device": "cpu",
+    }
+    if check_collection:
+        for i, e in enumerate(_expected_lists(type_name, check_collection)):
+            if not np.array_equal(lists[i], e):
+                raise SystemExit(f"MISMATCH in list {i}")
+        rec["check"] = "ok"
+        common.log("verification ok")
+    common.stats_line(rec)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("type", choices=sorted(common.DINT_KINDS))
+    ap.add_argument(
+        "type", choices=sorted(common.DINT_KINDS) + list(common.VROOM_ZOO)
+    )
     ap.add_argument("encoded_file")
     ap.add_argument("--dict", dest="dict_file")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--check-collection")
     ap.add_argument(
-        "--engine", choices=["local", "raw", "ladder"], default="local",
-        help="local (the dictionary-gather serving image, default) or "
-        "ladder (the canonical ladder image); raw is not ported yet",
+        "--engine", choices=["local", "raw", "ladder", "device", "host"],
+        default=None,
+        help="DINT types: local (the dictionary-gather serving image, "
+        "default) | ladder (the canonical ladder image) | raw (the "
+        "chain scan over raw tokens).  Zoo types: device (default; the "
+        "ladder image, or with --wire the wire-structure engine) | host "
+        "(numpy and native C++)",
     )
+    ap.add_argument("--wire", action="store_true",
+                    help="zoo types with --engine device: decode the wire "
+                    "format's own structure (" + ", ".join(WIRE_ENGINES)
+                    + ") instead of the ladder image")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
     args = ap.parse_args(argv)
+    if args.type in common.VROOM_ZOO:
+        engine = args.engine or "device"
+        if engine == "device":
+            decode_zoo_device(args.type, args.encoded_file, args.runs,
+                              args.check_collection, args.wire, args.device)
+        elif engine == "host":
+            decode_zoo(args.type, args.encoded_file, args.runs,
+                       args.check_collection)
+        else:
+            ap.error(f"--engine {engine} is for the DINT types")
+        return
+    if args.engine in ("device", "host"):
+        ap.error(f"--engine {args.engine} is for the zoo types")
     decode_stream(
         args.type, args.encoded_file, args.dict_file, args.runs,
-        args.check_collection, args.engine, args.device,
+        args.check_collection, args.engine or "local", args.device,
     )
 
 

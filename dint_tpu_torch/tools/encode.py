@@ -6,8 +6,9 @@ Usage (mirrors vroom_env/encode.cpp:269-329):
         [--dict DICT_FILE] [--out OUT_FILE] [--cache-dir DIR]
 
 <type> in {single_rect_dint, single_packed_dint, multi_packed_dint, ...}
-(the DINT kinds; the other vroom codecs are not ported).
-If --dict is absent the dictionary is trained (or loaded) with the
+or one of the vroom zoo codecs (u32, vbyte, ..., pef; whole lists, no
+dictionary).
+For a DINT type, if --dict is absent the dictionary is trained (or loaded) with the
 reference's create-or-load discipline.  Prints one JSON stats line
 {filename, num_sequences, num_integers, type, GiB, bpi, ...} like
 vroom_env/encode.cpp:38-58, plus the skip-sidecar size.
@@ -16,7 +17,9 @@ vroom_env/encode.cpp:38-58, plus the skip-sidecar size.
 from __future__ import annotations
 
 import argparse
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -73,18 +76,70 @@ def encode_collection(
     return rec
 
 
+def _encode_zoo_list(args):
+    """(payload, chunk byte lengths, universe) of one list: gaps for the
+    zoo codecs, the docID sequence for pef."""
+    from ..index import vroom_zoo
+    from ..utils import gaps as gap_mod
+
+    type_name, g = args
+    if type_name == "pef":
+        # pef codes the docID sequence itself (prefix sums of gaps+1)
+        d = gap_mod.gaps_to_docs(g)
+        body, _bits = vroom_zoo.encode_list_pef(d)
+        return body, [len(body)], int(d[-1]) + 1
+    body, lens = vroom_zoo.encode_list_zoo(type_name, g)
+    return body, lens, int(g.astype(np.int64).sum())
+
+
+def encode_zoo(type_name: str, collection_file: str, out_file: str,
+               workers: int = 1):
+    """Whole-list encoding for the non-DINT vroom types (incl. pef).
+    ``workers`` > 1 encodes the lists in that many processes, longest
+    lists first; the stream is the same bytes either way.  The workers
+    start from a fork server, not from a fork of this process, whose
+    threads (a framework's thread pools) a fork would copy stopped."""
+    gap_lists, _ = common.gap_lists_of(collection_file)
+    ns = [len(g) for g in gap_lists]
+    jobs = [(type_name, g) for g in gap_lists]
+    if workers > 1 and len(jobs) > 1:
+        order = sorted(range(len(jobs)), key=lambda i: -ns[i])
+        ctx = multiprocessing.get_context("forkserver")
+        with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
+            got = list(ex.map(_encode_zoo_list, [jobs[i] for i in order]))
+        res = [None] * len(jobs)
+        for i, r in zip(order, got):
+            res[i] = r
+    else:
+        res = [_encode_zoo_list(j) for j in jobs]
+    payloads = [r[0] for r in res]
+    block_lens = [r[1] for r in res]
+    universes = [r[2] for r in res]
+    meta = stream_mod.write_stream(out_file, payloads, ns, universes,
+                                   block_lens)
+    rec = stream_mod.stream_stats_line(type_name, out_file, meta)
+    common.stats_line(rec)
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("type", choices=sorted(common.DINT_KINDS))
+    ap.add_argument(
+        "type", choices=sorted(common.DINT_KINDS) + list(common.VROOM_ZOO)
+    )
     ap.add_argument("collection_file")
     ap.add_argument("--dict", dest="dict_file")
     ap.add_argument("--out", dest="out_file")
     ap.add_argument("--cache-dir", default=".")
     args = ap.parse_args(argv)
     out = args.out_file or (args.collection_file + "." + args.type + ".bin")
-    encode_collection(
-        args.type, args.collection_file, out, args.dict_file, args.cache_dir
-    )
+    if args.type in common.VROOM_ZOO:
+        encode_zoo(args.type, args.collection_file, out)
+    else:
+        encode_collection(
+            args.type, args.collection_file, out, args.dict_file,
+            args.cache_dir
+        )
 
 
 if __name__ == "__main__":

@@ -91,11 +91,18 @@ def test_cli_main_prints_the_record(encoded, capsys):
 
 @pytest.mark.parametrize("engine", ["raw"])
 def test_unported_engines_name_their_roadmap_item(encoded, engine):
-    enc, _, _ = encoded
+    """engine='raw' was the last engine to name its ROADMAP item; it is
+    ported since and checks the three-class collection, and an engine
+    that does not exist is refused by name."""
+    enc, base, _ = encoded
     stream, dict_file = enc["single_rect_dint"]["torch"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    rec = t_decode.decode_stream("single_rect_dint", stream, dict_file,
+                                 runs=1, check_collection=base + ".docs",
+                                 engine=engine, device="cpu")
+    assert rec["check"] == "ok" and rec["engine"] == engine
+    with pytest.raises(ValueError, match="not in"):
         t_decode.decode_stream("single_rect_dint", stream, dict_file,
-                               runs=1, engine=engine, device="cpu")
+                               runs=1, engine="warp", device="cpu")
 
 
 @pytest.mark.parametrize("type_name", TYPES)

@@ -61,7 +61,16 @@ def test_port_file_list_is_complete():
                  "dint_tpu_torch/kernels/unpack_device.py",
                  "dint_tpu_torch/query/native_host.py",
                  "dint_tpu_torch/tools/bench.py",
-                 "dint_tpu_torch/tools/kernel_ablate.py"):
+                 "dint_tpu_torch/tools/kernel_ablate.py",
+                 "dint_tpu_torch/kernels/decode_xla.py",
+                 "dint_tpu_torch/kernels/pipeline.py",
+                 "dint_tpu_torch/codecs/blocks.py",
+                 "dint_tpu_torch/codecs/qmx.py",
+                 "dint_tpu_torch/codecs/zoonative.py",
+                 "dint_tpu_torch/codecs/ef.py",
+                 "dint_tpu_torch/utils/bitio.py",
+                 "dint_tpu_torch/utils/bitnative.py",
+                 "dint_tpu_torch/index/vroom_zoo.py"):
         assert must in rel
 
 
@@ -78,6 +87,11 @@ def test_port_file_list_is_complete():
     "dint_tpu_torch.tools.decode", "dint_tpu_torch.tools.bench",
     "dint_tpu_torch.tools.kernel_ablate",
     "dint_tpu_torch.query.bmw", "dint_tpu_torch.query.bmw_device",
+    "dint_tpu_torch.kernels.decode_xla", "dint_tpu_torch.kernels.pipeline",
+    "dint_tpu_torch.codecs.blocks", "dint_tpu_torch.codecs.qmx",
+    "dint_tpu_torch.codecs.zoonative", "dint_tpu_torch.codecs.ef",
+    "dint_tpu_torch.utils.bitio", "dint_tpu_torch.utils.bitnative",
+    "dint_tpu_torch.index.vroom_zoo", "dint_tpu_torch.tools.encode",
 ])
 def test_serving_modules_import_without_jax(module):
     """Each module of the serving and bench slices imports in a fresh interpreter
