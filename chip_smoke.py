@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card: the vroom
 gather decode, the whole bench (gather and ladder engines, store probe),
 the one-hot kernel ablation, fused ranked query serving, the raw
-chain-scan engine and the eleven zoo list types.
+chain-scan engine, the eleven zoo list types, the sharded steps and
+serving over torch.distributed, the statistics merge and the multi-rank
+dry run.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
 
@@ -104,14 +106,39 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     the eight types with one, through its wire-structure engine at 200,
     every list checked; ints/s, image bytes an int and cold start per
     type; torch.profiler traces of the ladder chain and of each wire
-    engine family.
+    engine family;
+17. sharded steps, one NCCL rank on the card (``parallel.dist.run_ranks``;
+    NCCL runs one rank a card and the host has one): ``stats_training_step``
+    over every full 256-int block of the collection's docid gaps with
+    65,536 buckets, equal to a numpy replay of the same hashes, its mass
+    the blocks times the sum of 256/s; ``ladder_shard_pack`` and
+    ``ladder_sharded_decode_step`` over the single_rect stream's values,
+    reassembled equal to the source and to
+    ``UnpackEngine.decode_all_ordered``; the dry run's AND and top-k steps
+    at its shapes against numpy; each step timed by CUDA events;
+18. sharded serving: ``serve_ranked_sharded`` on one NCCL rank over the
+    phase-8 index and log, unpruned and pruned, top-10 equal to phase
+    11's oracle (rtol 2e-4, atol 1e-5, as many results); launch counts
+    reset in the rank just before and read just after: the fused class
+    launch ran and no stand-alone K1-K3 launch did; µs a query beside
+    the fused store's ``ranked_or``;
+19. the statistics merge: ``collectors.collect_multi`` and
+    ``collect_single`` over the collection's docid gaps with
+    ``WindowCounter(device="cuda")`` and with numpy merges, equal as sets
+    of (window, count) for every key; the merges the card took (at least
+    one), the rows they merged and both wall times;
+20. the multi-rank dry run: ``parallel.dryrun.dryrun_multichip(4,
+    device="cpu")`` on four gloo ranks of the host's CPU, its summary
+    line (the multi-rank logic; one card proves one rank only).
 
 Phases 3 and 7 also time ``torch.gather`` (the library call computing
 K1's and K6/K7's gather, without the salt and the n mask) in turns with
 the kernels on the same rows.
 
-Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``
-and ``{"zoo": ...}`` lines among them), the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
+Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``,
+``{"zoo": ...}``, ``{"sharded_steps": ...}``, ``{"sharded_serve": ...}``,
+``{"stats_merge": ...}`` and ``{"dryrun": ...}`` lines among them), the
+dry run's summary line, the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
 fused class launch) and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
 no card or no checkout around it.
@@ -170,6 +197,11 @@ TOPK = 10
 RTOL, ATOL = 2e-4, 1e-5  # tests/test_device_serve.py:87
 PROFILE_PASSES = 3
 K4_EDGE_G = (1, 7, 8193)
+STATS_BUCKETS = 1 << 16  # stats_training_step's n_buckets on the card
+STEP_ITERS = 20  # CUDA-event timings of a sharded step
+SHARDED_SERVE_RUNS = 3  # timed serve_ranked_sharded calls after a cold one
+STATS_COLLECTORS = ("multi", "single")
+DRYRUN_RANKS = 4
 DECODE_KERNELS = ("K1_gather32", "K2_gather16", "K3_zero")
 FUSED = "K123_decode_classes"  # the engines' one launch over the classes
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
@@ -1650,6 +1682,7 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
     }
     return {"records": recs, "host_s": times, "launches": counts,
             "class_errs": class_errs, "exact": exact,
+            "oracle": state["oracle"],
             "store_bytes": store.store_bytes, "store_rows": store.NB,
             "k4": k4, "profile": prof, "pruned_profile": pruned_prof,
             "pruned": pruned, "host_engine": host}
@@ -1786,6 +1819,327 @@ def zoo_phases(base: str, smi: str, device="cuda"):
             "kernel_launches": sum(counts.values()), "nvidia_smi": smi}
 
 
+# ---------------------------------------------------------------------------
+# The sharded path (parallel/), the statistics merge, the dry run
+# ---------------------------------------------------------------------------
+
+
+def np_mix32(x: np.ndarray) -> np.ndarray:
+    """numpy replay of ``steps.mix32`` in u32 arithmetic."""
+    z = np.asarray(x, np.uint32)
+    z = (z ^ (z >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    z = (z ^ (z >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    return z ^ (z >> np.uint32(16))
+
+
+def np_stats_histogram(blocks: np.ndarray, n_buckets: int) -> np.ndarray:
+    """numpy replay of ``steps.stats_training_step``'s histogram: every
+    target-size window of every block hashed (FNV-style over mix32),
+    bucketed and counted under its block's selector."""
+    from dint_tpu_torch.config import NUM_SELECTORS, TARGET_SIZES
+    from dint_tpu_torch.stats import collectors
+
+    B = blocks.shape[0]
+    sel = collectors.selectors_for_blocks(blocks).astype(np.int64)
+    idx = []
+    for s in TARGET_SIZES:
+        wins = blocks.reshape(B, 256 // s, s)
+        h = np.zeros((B, 256 // s), np.uint32)
+        for t in range(s):
+            h = (h * np.uint32(0x01000193)) ^ np_mix32(wins[:, :, t])
+        bucket = (h & np.uint32(n_buckets - 1)).astype(np.int64)
+        idx.append((sel[:, None] * n_buckets + bucket).ravel())
+    return np.bincount(np.concatenate(idx),
+                       minlength=NUM_SELECTORS * n_buckets)
+
+
+def sharded_steps_rank(rank, world, device, blocks, packed, counts, small):
+    """Phase 17's rank body: every sharded step on this rank's tensors,
+    each timed by CUDA events (median of STEP_ITERS, L2 flushed)."""
+    import torch
+
+    from dint_tpu_torch.parallel import dist as pdist
+    from dint_tpu_torch.parallel import steps
+
+    up = lambda a: pdist.to_tensors(a, device)
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
+    tb = up(blocks)
+    hist, sel = steps.stats_training_step(tb, n_buckets=STATS_BUCKETS)
+    pk = {w: up(a[rank]) for w, a in packed.items()}
+    ct = {w: int(c[rank]) for w, c in counts.items()}
+    louts, total = steps.ladder_sharded_decode_step(pk, ct)
+    cand, lists = up(small["cand"]), up(small["lists"][rank])
+    valid = torch.ones(lists.shape[0], dtype=torch.bool, device=device)
+    parts = up(small["parts"][rank])
+    ddocs, dscores = up(small["ddocs"][rank]), up(small["dscores"][rank])
+    calls = {
+        "stats_training_step": lambda: steps.stats_training_step(
+            tb, n_buckets=STATS_BUCKETS),
+        "ladder_sharded_decode_step":
+            lambda: steps.ladder_sharded_decode_step(pk, ct),
+        "term_sharded_and_step":
+            lambda: steps.term_sharded_and_step(cand, lists, valid),
+        "term_sharded_topk_step":
+            lambda: steps.term_sharded_topk_step(parts, TOPK),
+        "doc_sharded_topk_step":
+            lambda: steps.doc_sharded_topk_step(ddocs, dscores, TOPK),
+    }
+    outs = {name: fn() for name, fn in calls.items() if name.startswith(
+        ("term", "doc"))}
+    ms, prof = "not measured", "not measured"
+    if device.type == "cuda":
+        ms = {name: time_ms(fn, STEP_ITERS, flush)
+              for name, fn in calls.items()}
+        prof = {name: profile_device(
+            calls[name], 1, os.path.join(CACHE, f"{name}_trace.json"))
+            for name in ("stats_training_step", "ladder_sharded_decode_step")}
+    return {"hist": hist, "sel": sel,
+            "ladder": {w: v[: ct[w]] for w, v in louts.items()},
+            "ladder_total": total, "small": outs, "ms": ms, "profile": prof,
+            "backend": torch.distributed.get_backend()}
+
+
+def sharded_steps_phase(data, base: str, device="cuda"):
+    """Phase 17: the sharded steps at full size on one NCCL rank of the
+    card: stats_training_step over every full block of the collection's
+    docid gaps (against a numpy replay of the same hashes), the sharded
+    ladder decode of the single_rect stream's values (reassembled
+    against the source and UnpackEngine), and the dry run's AND and
+    top-k steps at its shapes (against numpy).  Returns the record."""
+    from dint_tpu_torch.config import TARGET_SIZES
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.kernels import unpack_device
+    from dint_tpu_torch.parallel import dist as pdist
+    from dint_tpu_torch.parallel import dryrun, steps
+    from dint_tpu_torch.query import native_host
+    from dint_tpu_torch.tools import common, decode
+
+    t0 = time.perf_counter()
+    gaps, _ = common.gap_lists_of(base + ".docs")
+    blocks = np.concatenate([g[: g.shape[0] // 256 * 256].reshape(-1, 256)
+                             for g in gaps if g.shape[0] >= 256])
+    source = np.concatenate(gaps)
+    stream, dict_file = data["single_rect_dint"]
+    arena, meta = stream_mod.load_stream(stream)
+    view = decode.load_dictionary("single_rect_dint", dict_file).decode_view()
+    lay = decode.units_from_meta(arena, meta, False)
+    flat = native_host.decode_units_flat(view, arena, lay.starts,
+                                         lay.byte_lens, lay.n, lay.ctx,
+                                         lay.b_bits)
+    if not np.array_equal(flat, source):
+        fail("the single_rect stream's values are not the collection's gaps")
+    packed, counts, order, (toff, tail) = steps.ladder_shard_pack(flat, 1)
+    small = dryrun.step_inputs(1)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (res,) = pdist.run_ranks(sharded_steps_rank, 1, device,
+                             (blocks, packed, counts, small), timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np_stats_histogram(blocks, STATS_BUCKETS)
+    if not np.array_equal(res["hist"], want):
+        fail(f"stats_training_step's histogram differs from numpy's in "
+             f"{int((res['hist'] != want).sum())} buckets")
+    per_block = sum(256 // s for s in TARGET_SIZES)
+    if int(res["hist"].sum()) != blocks.shape[0] * per_block:
+        fail(f"histogram mass {int(res['hist'].sum())} != "
+             f"{blocks.shape[0]} blocks x {per_block}")
+    from dint_tpu_torch.stats import collectors
+
+    if not np.array_equal(res["sel"], collectors.selectors_for_blocks(blocks)):
+        fail("stats_training_step's selectors differ from numpy's")
+    rebuilt = np.empty_like(flat)
+    rb = rebuilt[:toff].reshape(-1, 256)
+    for w, o in res["ladder"].items():
+        rb[order[w][0]] = o.view(np.uint32)
+    rebuilt[toff:] = tail
+    if not np.array_equal(rebuilt, source):
+        fail("the sharded ladder decode, reassembled, differs from the source")
+    eng = unpack_device.UnpackEngine(unpack_device.ladder_plan_from_values(
+        flat), device=device)
+    if not np.array_equal(eng.decode_all_ordered(), rebuilt):
+        fail("UnpackEngine.decode_all_ordered differs from the sharded decode")
+    del eng
+    if res["ladder_total"] != toff:
+        fail(f"ladder count {res['ladder_total']} != {toff}")
+    out = res["small"]
+    cand, lists = small["cand"], small["lists"][0]
+    want_and = np.stack([np.isin(cand[q], lists[q]) for q in range(4)])
+    if not np.array_equal(out["term_sharded_and_step"], want_and):
+        fail("term_sharded_and_step differs from numpy")
+    for name, scores in (("term_sharded_topk_step", small["parts"][0]),
+                         ("doc_sharded_topk_step", small["dscores"][0])):
+        v, ids = out[name]
+        want_v = -np.sort(-scores, axis=1)[:, :TOPK]
+        if not (np.array_equal(v, want_v) and np.array_equal(
+                np.take_along_axis(scores, ids % 64, axis=1), v)):
+            fail(f"{name} differs from numpy")
+    check_s = time.perf_counter() - t0
+    rec = {
+        "ranks": 1, "backend": res["backend"], "blocks": int(blocks.shape[0]),
+        "n_buckets": STATS_BUCKETS, "histogram_mass": int(res["hist"].sum()),
+        "ladder_ints": int(res["ladder_total"]), "stream_ints": int(toff
+                                                                   + tail.size),
+        "ladder_classes": {int(w): int(c[0]) for w, c in counts.items()},
+        "step_ms": res["ms"], "profile": res["profile"], "prep_s": prep_s,
+        "ranks_s": ranks_s,
+        "check_s": check_s,
+    }
+    log(f"sharded steps on one {rec['backend']} rank: {rec['step_ms']}")
+    return rec
+
+
+def sharded_serve_rank(rank, world, device, paths, runs):
+    """Phase 18's rank body: the serving log through serve_ranked_sharded
+    on one index, unpruned then pruned, launches counted from zero; one
+    cold call (it decodes the terms) and ``runs`` timed calls each."""
+    import torch
+
+    from dint_tpu_torch.index.dint_index import DintIndex
+    from dint_tpu_torch.parallel import serve
+    from dint_tpu_torch.query import boolean, ranked
+    from dint_tpu_torch.query.term_decode import TermDecoder
+
+    idx_path, wand_path, qfile = paths
+    index = DintIndex.load(idx_path)
+    wdata = ranked.WandData.load(wand_path)
+    qs = boolean.parse_query_log(qfile)
+    index.ensure_docs_end()
+    dec = TermDecoder(index, device=device)
+    reset_launch_counts()
+    out = {}
+    for pruned in (False, True):
+        times = []
+        for _ in range(runs + 1):
+            t0 = time.perf_counter()
+            v, ids = serve.serve_ranked_sharded(None, index, dec, wdata, qs,
+                                                k=TOPK, pruned=pruned)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        key = "pruned" if pruned else "unpruned"
+        out[key] = {
+            "scores": v, "docids": ids, "cold_s": times[0],
+            "us_per_query": [t * 1e6 / len(qs) for t in times[1:]]}
+    counts = launch_counts()
+    for key in out:
+        out[key]["profile"] = "not measured"
+        if device.type == "cuda":
+            out[key]["profile"] = profile_device(
+                lambda: serve.serve_ranked_sharded(
+                    None, index, dec, wdata, qs, k=TOPK,
+                    pruned=key == "pruned"),
+                1, os.path.join(CACHE, f"sharded_serve_trace.{key}.json"))
+    return {"serve": out, "launches": counts, "queries": len(qs)}
+
+
+def sharded_serve_phase(paths, oracle, ranked_or_us: float, device="cuda"):
+    """Phase 18: serve_ranked_sharded on one NCCL rank over the phase-8
+    index and log, unpruned and pruned: top-10 against phase 11's oracle,
+    the fused class launch in the launch counts and no stand-alone K1-K3
+    launch, and µs a query beside the fused store's ranked_or."""
+    from dint_tpu_torch.parallel import dist as pdist
+
+    t0 = time.perf_counter()
+    (res,) = pdist.run_ranks(sharded_serve_rank, 1, device,
+                             (paths, SHARDED_SERVE_RUNS), timeout_s=900)
+    wall_s = time.perf_counter() - t0
+    counts = res["launches"]
+    log(f"sharded serve launches: {counts}")
+    require_fused(counts, "sharded serve")
+    rec = {"ranks": 1, "queries": res["queries"], "k": TOPK,
+           "runs": SHARDED_SERVE_RUNS, "wall_s": wall_s,
+           "fused_store_ranked_or_us_per_query": ranked_or_us,
+           "launches": counts}
+    for key, r in res["serve"].items():
+        fin = [np.isfinite(row) for row in r["scores"]]
+        out_s = [row[m] for row, m in zip(r["scores"], fin)]
+        out_d = [row[m] for row, m in zip(r["docids"], fin)]
+        worst = check_topk(list(range(len(out_s))), oracle, out_s, out_d,
+                           f"sharded serve ({key})")
+        us = r["us_per_query"]
+        rec[key] = {"max_rel_score_err": worst, "cold_s": r["cold_s"],
+                    "us_per_query": us, "profile": r["profile"],
+                    "us_per_query_mean": sum(us) / len(us)}
+        log(f"sharded serve {key}: {rec[key]['us_per_query_mean']:.1f} us a "
+            f"query (fused store ranked_or {ranked_or_us:.1f}), exact to "
+            f"{worst:.2e}")
+    return rec
+
+
+@contextlib.contextmanager
+def numpy_merges():
+    """Inside the block every WindowCounter merge runs in numpy: the
+    device merge's row gate is raised past any merge."""
+    from dint_tpu_torch.stats import device_merge
+
+    gate = device_merge.MIN_DEVICE_ROWS
+    device_merge.MIN_DEVICE_ROWS = sys.maxsize
+    try:
+        yield
+    finally:
+        device_merge.MIN_DEVICE_ROWS = gate
+
+
+def sorted_rows(windows: np.ndarray, counts: np.ndarray):
+    """(windows, counts) in one content order, to compare as sets."""
+    from dint_tpu_torch.stats import collectors
+
+    order = np.argsort(collectors._rows_view(windows), kind="stable")
+    return windows[order], counts[order]
+
+
+def stats_merge_phase(base: str, device="cuda"):
+    """Phase 19: collectors.collect_multi and collect_single over the
+    collection's docid gaps, once with WindowCounter(device="cuda") and
+    once with numpy merges: equal as sets of (window, count) for every
+    key; the merges the card took (at least one), the rows they merged,
+    and both wall times.  Returns the record."""
+    import torch
+
+    from dint_tpu_torch.stats import collectors, device_merge
+    from dint_tpu_torch.tools import common
+
+    gaps, total = common.gap_lists_of(base + ".docs")
+    rec = {"ints": total}
+    for name in STATS_COLLECTORS:
+        fn = getattr(collectors, f"collect_{name}")
+        device_merge.reset_merge_counts()
+        t0 = time.perf_counter()
+        card = fn(gaps, device=device)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        merges = device_merge.merge_counts()
+        with numpy_merges():
+            t0 = time.perf_counter()
+            host = fn(gaps, device="cpu")
+            host_s = time.perf_counter() - t0
+        if sorted(card) != sorted(host):
+            fail(f"collect_{name}: the card's keys differ from numpy's")
+        windows = 0
+        for key in host:
+            a, b = sorted_rows(*card[key]), sorted_rows(*host[key])
+            if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+                fail(f"collect_{name} {key}: the card's counts differ from "
+                     "numpy's")
+            windows += int(b[0].shape[0])
+        rec[name] = {"card_s": card_s, "numpy_s": host_s,
+                     "device_merges": merges["merges"],
+                     "device_chunks": merges["chunks"],
+                     "device_rows_merged": merges["rows"],
+                     "distinct_windows": windows}
+        log(f"collect_{name}: card {card_s:.1f} s ({merges['merges']} device "
+            f"merges, {merges['rows']} rows), numpy {host_s:.1f} s, equal")
+    if sum(rec[n]["device_merges"] for n in STATS_COLLECTORS) <= 0:
+        fail("the card took no statistics merge")
+    if torch.cuda.is_available():
+        rec["profile_multi"] = profile_device(
+            lambda: collectors.collect_multi(gaps, device=device), 1,
+            os.path.join(CACHE, "stats_merge_trace.json"))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -1882,28 +2236,7 @@ def main(argv=None) -> int:
     serve = serve_phases(base, paths, kind,
                          os.path.join(CACHE, "serve_trace.json"))
     serve["data_s"] = data_s
-
-    def by_path(key):
-        return {"decode": sum(c[key] for c in counts.values()),
-                "bench": bench_counts[key], "ablate": ablate_counts[key],
-                "serve": serve["launches"][key]}
-
-    for k in kernels:
-        # a class kernel's launches: those of its own (the ablation's K1)
-        # and the fused launches whose grid ran its body
-        k["launches_by_path"] = by_path(k["name"])
-        k["launches"] = sum(k["launches_by_path"].values())
-        if k["name"] != FUSED:
-            k["standalone_launches"] = k["launches"]
-            k["launches_in_fused_by_path"] = by_path(k["name"] + IN_FUSED)
-            k["launches"] += sum(k["launches_in_fused_by_path"].values())
-        if k["launches"] <= 0:
-            fail(f"{k['name']} was never launched on a main path")
-        k["max_abs_err"] = max(k["max_abs_err"],
-                               serve["class_errs"][k["name"]])
-    k4 = serve.pop("k4")
-    k4["launches_by_path"] = {"serve": k4["launches"]}
-    kernels += [k4, k5, *onehot]
+    oracle = serve.pop("oracle")
     ranked = serve["records"]["ranked_or"]
     print(json.dumps({"serve": {
         "type": "ranked_or", "k": TOPK, "queries": serve["exact"]["queries"],
@@ -1935,14 +2268,62 @@ def main(argv=None) -> int:
     # through their wire engines, exact
     zoo = zoo_phases(base, smi)
     print(json.dumps({"zoo": {**zoo, "device": kind}}), flush=True)
+
+    # 17. the sharded steps at full size on one NCCL rank
+    sharded_steps = sharded_steps_phase(data, base)
+    print(json.dumps({"sharded_steps": {**sharded_steps, "device": kind,
+                                        "nvidia_smi": smi}}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 18. serve_ranked_sharded on one NCCL rank, launches counted from 0
+    sharded_serve = sharded_serve_phase(paths, oracle, ranked["avg"])
+    print(json.dumps({"sharded_serve": {**sharded_serve, "device": kind,
+                                        "nvidia_smi": smi}}), flush=True)
+
+    # 19. the statistics merge on the card against numpy's
+    stats_merge = stats_merge_phase(base)
+    print(json.dumps({"stats_merge": {**stats_merge, "device": kind,
+                                      "nvidia_smi": smi}}), flush=True)
+    torch.cuda.empty_cache()
+
+    # 20. the multi-rank dry run on gloo ranks of the host's CPU (the
+    # host has one card, and NCCL runs one rank a card)
+    from dint_tpu_torch.parallel import dryrun
+
+    dry = dryrun.dryrun_multichip(DRYRUN_RANKS, device="cpu")
+    print(json.dumps({"dryrun": dry}), flush=True)
+
+    def by_path(key):
+        return {"decode": sum(c[key] for c in counts.values()),
+                "bench": bench_counts[key], "ablate": ablate_counts[key],
+                "serve": serve["launches"][key],
+                "sharded_serve": sharded_serve["launches"][key]}
+
+    for k in kernels:
+        # a class kernel's launches: those of its own (the ablation's K1)
+        # and the fused launches whose grid ran its body
+        k["launches_by_path"] = by_path(k["name"])
+        k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] != FUSED:
+            k["standalone_launches"] = k["launches"]
+            k["launches_in_fused_by_path"] = by_path(k["name"] + IN_FUSED)
+            k["launches"] += sum(k["launches_in_fused_by_path"].values())
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was never launched on a main path")
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               serve["class_errs"][k["name"]])
+    k4 = serve.pop("k4")
+    k4["launches_by_path"] = {"serve": k4["launches"]}
+    kernels += [k4, k5, *onehot]
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
                "chain_salt": salt, "profile": prof, "bench": bench_rec,
                "bench_legs": bench_legs, "bench_launches": bench_counts,
                "ladder_profile": ladder_prof, "ablation": ablate,
                "ablation_launches": ablate_counts, "serve": serve,
-               "raw": raw, "zoo": zoo,
-               "wall_s": time.perf_counter() - t_start}
+               "raw": raw, "zoo": zoo, "sharded_steps": sharded_steps,
+               "sharded_serve": sharded_serve, "stats_merge": stats_merge,
+               "dryrun": dry, "wall_s": time.perf_counter() - t_start}
     log(f"done in {summary['wall_s']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

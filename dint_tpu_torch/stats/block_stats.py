@@ -23,8 +23,17 @@ from typing import List
 
 import numpy as np
 
-from ..config import MAX_ENTRY_SIZE, NUM_ENTRIES, NUM_SELECTORS
+from ..config import (
+    CODEWORD_BITS,
+    DSF_FILTER_THRESHOLD,
+    INITIAL_BPI,
+    MAX_ENTRY_SIZE,
+    NUM_ENTRIES,
+    NUM_SELECTORS,
+)
 from ..io.collection import BinaryCollection
+from ..utils import gaps as gap_mod
+from . import collectors
 
 
 @dataclass
@@ -51,28 +60,104 @@ class BlockStats:
         return len(self.contexts) > 1
 
 
+def dsf_saving(lengths: np.ndarray, freqs: np.ndarray, total_integers: int) -> np.ndarray:
+    """compute_saving (dictionary_builders.hpp:19-26)."""
+    return (
+        freqs.astype(np.float64)
+        * (INITIAL_BPI * lengths.astype(np.float64) - CODEWORD_BITS)
+        / float(total_integers)
+    )
+
+
+def _filter_sort(
+    per_size: dict, total_integers: int, threshold: float = DSF_FILTER_THRESHOLD
+) -> SelectorStats:
+    """Apply the DSF cost filter + singleton keep, then (freq, length) sort."""
+    lens_parts, freq_parts, data_parts = [], [], []
+    for size, (windows, freqs) in per_size.items():
+        if windows.shape[0] == 0:
+            continue
+        lengths = np.full(freqs.shape[0], size, dtype=np.int32)
+        keep = (dsf_saving(lengths, freqs, total_integers) > threshold) | (
+            lengths == 1
+        )
+        windows, freqs, lengths = windows[keep], freqs[keep], lengths[keep]
+        padded = np.zeros((windows.shape[0], MAX_ENTRY_SIZE), dtype=np.uint32)
+        padded[:, :size] = windows
+        lens_parts.append(lengths)
+        freq_parts.append(freqs)
+        data_parts.append(padded)
+    if not lens_parts:
+        z = np.zeros(0, dtype=np.int64)
+        return SelectorStats(
+            z.astype(np.int32), z, np.zeros((0, MAX_ENTRY_SIZE), np.uint32)
+        )
+    lengths = np.concatenate(lens_parts)
+    freqs = np.concatenate(freq_parts)
+    data = np.concatenate(data_parts)
+    # freq_length_sorter (statistics_collectors.hpp:57-64): freq desc,
+    # tie-break length desc.  The reference's std::sort leaves further
+    # ties unordered; we add a content tie-break for determinism.
+    content_key = np.ascontiguousarray(data.byteswap()).view(
+        np.dtype((np.void, MAX_ENTRY_SIZE * 4))
+    ).ravel()
+    order = np.lexsort((content_key, -lengths.astype(np.int64), -freqs))
+    return SelectorStats(lengths[order], freqs[order], data[order])
+
+
+def gap_stream(collection: BinaryCollection, compute_gaps: bool):
+    """Yield the transformed (d-gap / freq-1) stream per list.
+
+    Reference block_statistics.hpp:62-79: for docs, skip the leading
+    num-docs singleton and d-gap each list; for freqs subtract 1.
+    """
+    it = iter(range(len(collection)))
+    if compute_gaps:
+        next(it)  # leading num-docs singleton
+    for i in it:
+        seq = collection.sequence(i)
+        if seq.shape[0] == 0:
+            continue
+        if compute_gaps:
+            yield gap_mod.docs_to_gaps(seq)
+        else:
+            yield gap_mod.freqs_to_gaps(seq)
+
+
 def compute_stats(
     collection: BinaryCollection,
     compute_gaps: bool,
     multi: bool,
     padded_limit: int = None,
+    device="cuda",
 ) -> BlockStats:
     """padded_limit: when set, each context's padded (U, 16) arrays are
     capped to the top padded_limit records (all the dictionary builder
     reads — targets_from_stats caps at num_entries), with the full
-    record set carried in SelectorStats.full for store_stats.  Runs
-    the native collector only (native_stats.compute_stats_native)."""
+    record set carried in SelectorStats.full for store_stats.  The
+    native collector runs first (native_stats.compute_stats_native);
+    where it returns None the collectors of ``collectors.py`` count the
+    windows, their large merges on ``device``, and ignore the limit
+    (always full)."""
     total = collection.num_postings() - (2 if compute_gaps else 0)
     from . import native_stats
 
     contexts = native_stats.compute_stats_native(
         collection, compute_gaps, multi, total, padded_limit
     )
-    if contexts is None:
-        raise RuntimeError(
-            "native statistics library unavailable (g++ and "
-            "native/dint_stats.cpp are required)"
-        )
+    if contexts is not None:
+        return BlockStats(total, contexts)
+    if multi:
+        per_key = collectors.collect_multi(
+            gap_stream(collection, compute_gaps), device=device)
+        contexts = []
+        for sel in range(NUM_SELECTORS):
+            per_size = {s: per_key[(sel, s)] for s in collectors.TARGET_SIZES}
+            contexts.append(_filter_sort(per_size, total))
+    else:
+        per_size = collectors.collect_single(
+            gap_stream(collection, compute_gaps), device=device)
+        contexts = [_filter_sort(per_size, total)]
     return BlockStats(total, contexts)
 
 

@@ -3,9 +3,9 @@
 Builds native/dint_stats.cpp on first use (g++ -O3 shared object, in
 the port's build directory; see utils/nativebuild.py): exact content
 counting (hash + arena verify, no collision conflation), the DSF
-filter and the (freq desc, len desc, content asc) sort.  The port has
-no numpy fallback for the collectors: without the native library the
-statistics stage raises.
+filter and the (freq desc, len desc, content asc) sort.  Without the
+native library ``block_stats.compute_stats`` counts through
+``collectors.py`` instead, as the reference does.
 """
 
 from __future__ import annotations

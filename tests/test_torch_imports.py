@@ -70,7 +70,14 @@ def test_port_file_list_is_complete():
                  "dint_tpu_torch/codecs/ef.py",
                  "dint_tpu_torch/utils/bitio.py",
                  "dint_tpu_torch/utils/bitnative.py",
-                 "dint_tpu_torch/index/vroom_zoo.py"):
+                 "dint_tpu_torch/index/vroom_zoo.py",
+                 "dint_tpu_torch/parallel/dist.py",
+                 "dint_tpu_torch/parallel/steps.py",
+                 "dint_tpu_torch/parallel/build.py",
+                 "dint_tpu_torch/parallel/serve.py",
+                 "dint_tpu_torch/parallel/dryrun.py",
+                 "dint_tpu_torch/stats/collectors.py",
+                 "dint_tpu_torch/stats/device_merge.py"):
         assert must in rel
 
 
@@ -92,6 +99,10 @@ def test_port_file_list_is_complete():
     "dint_tpu_torch.codecs.zoonative", "dint_tpu_torch.codecs.ef",
     "dint_tpu_torch.utils.bitio", "dint_tpu_torch.utils.bitnative",
     "dint_tpu_torch.index.vroom_zoo", "dint_tpu_torch.tools.encode",
+    "dint_tpu_torch.parallel.dist", "dint_tpu_torch.parallel.steps",
+    "dint_tpu_torch.parallel.build", "dint_tpu_torch.parallel.serve",
+    "dint_tpu_torch.parallel.dryrun", "dint_tpu_torch.stats.collectors",
+    "dint_tpu_torch.stats.device_merge", "dint_tpu_torch.stats.block_stats",
 ])
 def test_serving_modules_import_without_jax(module):
     """Each module of the serving and bench slices imports in a fresh interpreter
