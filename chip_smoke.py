@@ -3,8 +3,10 @@
 gather decode, the whole bench (gather and ladder engines, store probe),
 the one-hot kernel ablation, fused ranked query serving, the raw
 chain-scan engine, the eleven zoo list types, the sharded steps and
-serving over torch.distributed, the statistics merge and the multi-rank
-dry run.
+serving over torch.distributed, the statistics merge, the multi-rank
+dry run, the EF and block index families (device EF decode, block-codec
+serving through K4), the native cursor engine and the chained decode of
+packed per-unit plans.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
 
@@ -102,8 +104,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 16. zoo: the eleven ``VROOM_ZOO`` types encoded from the phase-2
     collection (``tools.encode.encode_zoo`` with a process per core,
     under ``.chip_smoke/zoo/``), each decoded by ``tools.decode``'s
-    device path through the ladder image at 2000 chained runs and, for
-    the eight types with one, through its wire-structure engine at 200,
+    device path through the ladder image at 500 chained runs and, for
+    the eight types with one, through its wire-structure engine at 100,
     every list checked; ints/s, image bytes an int and cold start per
     type; torch.profiler traces of the ladder chain and of each wire
     engine family;
@@ -129,7 +131,37 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     one), the rows they merged and both wall times;
 20. the multi-rank dry run: ``parallel.dryrun.dryrun_multichip(4,
     device="cpu")`` on four gloo ranks of the host's CPU, its summary
-    line (the multi-rank logic; one card proves one rank only).
+    line (the multi-rank logic; one card proves one rank only);
+21. index families: ``block_optpfor``, ``ef`` and ``opt`` built from the
+    phase-2 collection at full size by ``tools.create_freq_index
+    --check``, each build's seconds and bits an int;
+22. block serving: ``tools.queries block_optpfor
+    ranked_or:wand:maxscore:and:or --engine device`` over the phase-8
+    log, launches counted from zero: K4 once per bucket per pass, the
+    three ranked ops through the fused store, wand and maxscore pruned
+    through ``ZooBlockCache``; K4 against its plain version at that
+    store's bucket shapes (pruned and unpruned), every top-10 against
+    phase 11's oracle (unpruned and pruned), the survival masks against
+    the float64 replay, the and/or counts against phase 11's, the log's
+    lists against the collection; µs a query beside phase 9's
+    ``ranked_or``;
+23. EF: every list of the ``ef`` index through ``EFTermDecoder(device=
+    "cuda", device_ef=True)``, equal to the host decode and the
+    collection; ``ef_device.decode_tensors`` timed by CUDA events against
+    its bytes bound and the host's ``list_docids`` loop, with a profiler
+    trace; then ``tools.queries ef ... --engine device --device-ef``: no
+    K4 and no class launch (the row path, unpruned, the reference's
+    gates), top-10 against the oracle, counts against phase 11's;
+24. the native cursor engine: ``tools.queries <kind>
+    and:or:ranked_or:wand:maxscore --engine native`` over
+    ``multi_packed_dint``, ``block_optpfor`` and ``ef`` (its u32 block
+    view), totals equal to phase 11's counts and the oracle's; per query,
+    counts and top-10 scores;
+25. ``LocalDecodeEngine`` over the packed per-unit plan of both DINT
+    streams: 200 chained runs (CUDA events) and a ``decode_all``,
+    launches counted from zero (one fused launch a run), every list
+    equal to the collection, the chain's salt after 2 runs equal to the
+    plain version's on the host; ints/s beside phase 4's.
 
 Phases 3 and 7 also time ``torch.gather`` (the library call computing
 K1's and K6/K7's gather, without the salt and the n mask) in turns with
@@ -137,7 +169,9 @@ the kernels on the same rows.
 
 Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``,
 ``{"zoo": ...}``, ``{"sharded_steps": ...}``, ``{"sharded_serve": ...}``,
-``{"stats_merge": ...}`` and ``{"dryrun": ...}`` lines among them), the
+``{"stats_merge": ...}``, ``{"dryrun": ...}``, ``{"family_builds":
+...}``, ``{"block_serve": ...}``, ``{"ef": ...}``, ``{"native": ...}``
+and ``{"local_chain": ...}`` lines among them), the
 dry run's summary line, the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
 fused class launch) and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
@@ -176,8 +210,8 @@ ONEHOT_PLAIN_ROWS = 512  # plan rows K6/K7 are held to their plain version on
 # measure it, 2000 would take the script's whole time limit.
 RAW_RUNS = 10
 RAW_PROFILE_RUNS = 2
-ZOO_RUNS = 2000  # chained runs of a zoo type's ladder image, as the DINT legs
-ZOO_WIRE_RUNS = 200  # chained runs of a wire-structure engine
+ZOO_RUNS = 500  # chained runs of a zoo type's ladder image
+ZOO_WIRE_RUNS = 100  # chained runs of a wire-structure engine
 ZOO_PROFILE_RUNS = 50
 # the chains profiled: the ladder image (one type stands for all eleven:
 # the engine is the same) and each wire engine family
@@ -202,6 +236,15 @@ STEP_ITERS = 20  # CUDA-event timings of a sharded step
 SHARDED_SERVE_RUNS = 3  # timed serve_ranked_sharded calls after a cold one
 STATS_COLLECTORS = ("multi", "single")
 DRYRUN_RANKS = 4
+FAMILY_KINDS = ("block_optpfor", "ef", "opt")  # built at full size, --check
+BLOCK_SERVE = "block_optpfor"  # the block kind served through K4
+FAMILY_OPS = "ranked_or:wand:maxscore:and:or"  # tools.queries --engine device
+NATIVE_OPS = "and:or:ranked_or:wand:maxscore"  # tools.queries --engine native
+NATIVE_KINDS = (SERVE_TYPE, BLOCK_SERVE, "ef")
+FAMILY_RUNS = 3  # timed passes of tools.queries over the new kinds
+EF_DEVICE_ITERS = 20  # CUDA-event timings of the ef_device decode
+LOCAL_CHAIN_RUNS = 200  # chained runs of LocalDecodeEngine.decode_chain
+LOCAL_PLAIN_RUNS = 2  # its chain salt held to the plain version's
 DECODE_KERNELS = ("K1_gather32", "K2_gather16", "K3_zero")
 FUSED = "K123_decode_classes"  # the engines' one launch over the classes
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
@@ -1683,6 +1726,7 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
     return {"records": recs, "host_s": times, "launches": counts,
             "class_errs": class_errs, "exact": exact,
             "oracle": state["oracle"],
+            "bool_counts": {op: state[f"{op}_counts"] for op in ("and", "or")},
             "store_bytes": store.store_bytes, "store_rows": store.NB,
             "k4": k4, "profile": prof, "pruned_profile": pruned_prof,
             "pruned": pruned, "host_engine": host}
@@ -2140,6 +2184,434 @@ def stats_merge_phase(base: str, device="cuda"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The EF and block index families, the native engine, LocalDecodeEngine
+# ---------------------------------------------------------------------------
+
+
+def mark(t_start: float, what: str) -> None:
+    log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+
+
+def build_family_indexes(base: str):
+    """Phase 21: ``block_optpfor``, ``ef`` and ``opt`` built from the
+    phase-2 collection by ``tools.create_freq_index --check`` (every
+    posting re-decoded against the collection); returns ({kind: path},
+    {kind: record})."""
+    from dint_tpu_torch.tools import create_freq_index
+
+    paths, recs = {}, {}
+    for kind in FAMILY_KINDS:
+        path = os.path.join(CACHE, f"family.{kind}.npz")
+        t0 = time.perf_counter()
+        idx = create_freq_index.main([kind, base, path, "--check"])
+        recs[kind] = {"build_and_check_s": time.perf_counter() - t0,
+                      **idx.size_stats(), "file_bytes": os.path.getsize(path)}
+        log(f"built and checked {kind}: {recs[kind]}")
+        paths[kind] = path
+    return paths, recs
+
+
+@contextlib.contextmanager
+def keep_stores(kept: list):
+    """Inside the block, every DeviceServingStore built (tools.queries
+    builds one a ranked op) is also appended to ``kept``."""
+    from dint_tpu_torch.query import device_serve as ds
+
+    base = ds.DeviceServingStore
+
+    class Kept(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept.append(self)
+
+    ds.DeviceServingStore = Kept
+    try:
+        yield kept
+    finally:
+        ds.DeviceServingStore = base
+
+
+def run_queries_tool(kind: str, path: str, wand: str, qfile: str, ops: str,
+                     engine: str, extra=()) -> dict:
+    """``tools.queries`` as a user runs it; {op: record}."""
+    from dint_tpu_torch.tools import queries as qtool
+
+    recs = qtool.main([kind, ops, path, wand, "--queries", qfile, "--runs",
+                       str(FAMILY_RUNS), "--engine", engine, *extra])
+    return {r["type"]: r for r in recs}
+
+
+def check_counts(qs, got, want, what: str) -> int:
+    """Per-query result counts equal; returns their sum."""
+    got = np.asarray(got, np.int64)
+    bad = np.flatnonzero(got != np.asarray(want, np.int64))
+    if bad.size:
+        i = int(bad[0])
+        fail(f"{what} query {i} {qs[i]}: {int(got[i])} results, not "
+             f"{int(want[i])}")
+    return int(got.sum())
+
+
+def block_serve_phase(base, paths, family, oracle, bool_counts,
+                      dint_ranked_us, card_name, device="cuda"):
+    """Phase 22: ``tools.queries block_optpfor`` on the card, launches
+    counted from zero: ranked_or, wand and maxscore through the fused
+    store (K4; wand and maxscore pruned through ``ZooBlockCache``), and
+    and/or.  Then, on the stores that path built: K4 against its plain
+    version at their bucket shapes, pruned and unpruned; every ranked
+    top-10 against the oracle, unpruned and pruned; the survival masks
+    against the float64 replay; the and/or counts and the log's lists
+    against the collection.  On the CPU (a rehearsal) nothing is
+    launched and the launch counts are not asked."""
+    import torch
+
+    from dint_tpu_torch.query import boolean, device_batch
+    from dint_tpu_torch.tools import queries as qtool
+
+    _, wand, qfile = paths
+    kept = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with keep_stores(kept):
+        recs = run_queries_tool(BLOCK_SERVE, family[BLOCK_SERVE], wand, qfile,
+                                FAMILY_OPS, "device", ["--device", device])
+    tool_s = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"{BLOCK_SERVE} serve path launches: {counts}")
+    want_k4 = sum(len(recs[op]["buckets"].split(",")) * (FAMILY_RUNS + 1)
+                  for op in RANKED_OPS)
+    if device != "cpu" and (counts["K4_block_copy"] <= 0
+                            or counts["K4_block_copy"] != want_k4):
+        fail(f"{BLOCK_SERVE}: K4 launched {counts['K4_block_copy']} times, "
+             f"not once per bucket per pass ({want_k4})")
+    if len(kept) != len(RANKED_OPS):
+        fail(f"{BLOCK_SERVE}: {len(kept)} stores built, not one a ranked op")
+    for op in RANKED_OPS:
+        if recs[op].get("engine_variant") != "fused-store":
+            fail(f"{BLOCK_SERVE} {op} did not take the fused store")
+    for op in ("wand", "maxscore"):
+        if not int(recs[op]["blocks_kept"]) < int(recs[op]["blocks_total"]):
+            fail(f"{BLOCK_SERVE} {op} pruned nothing: {recs[op]}")
+    store = kept[-1]
+    index, dec = qtool.load_index(BLOCK_SERVE, family[BLOCK_SERVE], device)
+    wdata = store.wdata
+    qs = boolean.parse_query_log(qfile)
+    terms = sorted({t for q in qs for t in q})
+    docs, freqs, _ = read_collection(base)
+    got = dec.decode_docids(terms)
+    bad = [t for t in terms if not np.array_equal(got[t], docs[t])]
+    if bad:
+        fail(f"{BLOCK_SERVE}: terms {bad[:10]} decode wrong")
+    buckets, _, _ = store._batch_metadata(qs, TOPK, prune=False)
+    dev_buckets, _ = store.upload(buckets)
+    pbuckets, _, pstats = store._batch_metadata(
+        qs, TOPK, prune=True, lazy_cache=dec.lazy_cache)
+    pruned_dev_buckets, _ = store.upload(pbuckets)
+    k4_err = check_k4(store, [(f"P={P} G={blk.shape[0]}", blk, qw)
+                              for P, _, blk, qw, _ in dev_buckets]
+                      + [(f"pruned P={P} G={blk.shape[0]}", blk, qw)
+                         for P, _, blk, qw, _ in pruned_dev_buckets])
+    log(f"K4 equals its plain version at the {BLOCK_SERVE} store's "
+        f"{len(dev_buckets)} + {len(pruned_dev_buckets)} bucket shapes")
+    out_s, out_d, _ = store.ranked_topk(qs, k=TOPK, prune=False)
+    worst = check_topk(qs, oracle, out_s, out_d, f"{BLOCK_SERVE} ranked_or")
+    out_s, out_d, _ = store.ranked_topk(qs, k=TOPK, prune=True,
+                                        lazy_cache=dec.lazy_cache)
+    worst_pruned = check_topk(qs, oracle, out_s, out_d,
+                              f"{BLOCK_SERVE} pruned")
+    survival = check_survival({"index": index, "wdata": wdata,
+                               "store": store, "queries": qs,
+                               "decoder": dec})
+    totals = {op: check_counts(qs, device_batch.boolean_count_batch(dec, qs,
+                                                                    op),
+                               bool_counts[op], f"{BLOCK_SERVE} {op}")
+              for op in ("and", "or")}
+    for op in ("and", "or"):
+        if recs[op]["total_results"] != str(totals[op]):
+            fail(f"{BLOCK_SERVE} {op}: the tool counted "
+                 f"{recs[op]['total_results']}, not {totals[op]}")
+    del kept
+    torch.cuda.empty_cache()
+    return {
+        "kind": BLOCK_SERVE,
+        "records": {op: {k: r[k] for k in ("avg", "q50", "q90", "q95",
+                                           "batch_shape", "blocks_kept",
+                                           "blocks_total", "store_bytes",
+                                           "store_build_s", "buckets",
+                                           "prune_rows_host_s")
+                         if k in r} for op, r in recs.items()},
+        "dint_ranked_or_avg_us": dint_ranked_us,
+        "tool_s": tool_s, "k4_launches": counts["K4_block_copy"],
+        "fused_class_launches": counts[FUSED],
+        "k4_max_abs_err": k4_err, "max_rel_score_err": worst,
+        "max_rel_score_err_pruned": worst_pruned,
+        "blocks_kept": pstats["blocks_kept"],
+        "blocks_total": pstats["blocks_total"], "survival": survival,
+        "total_results": totals, "terms_checked": len(terms),
+        "device": card_name,
+    }
+
+
+def ef_phase(base, paths, family, oracle, bool_counts, card_name,
+             device="cuda"):
+    """Phase 23: every list of the ``ef`` index decoded on the card
+    through ``EFTermDecoder(device_ef=True)`` (``codecs/ef_device.py``),
+    equal to the host decode and the collection; the device decode
+    timed alone by CUDA events (L2 flushed) against its bytes bound and
+    the host loop; then ``tools.queries ef --device-ef`` on the card,
+    launches counted from zero: no K4 and no class launch (the row path
+    of ``device_batch``, unpruned), its top-10 against the oracle and
+    its counts against the phase-11 counts."""
+    import torch
+
+    from dint_tpu_torch.codecs import ef_device
+    from dint_tpu_torch.index.freq_index import EFTermDecoder, FreqIndexEF
+    from dint_tpu_torch.query import boolean, device_batch, ranked
+
+    _, wand, qfile = paths
+    idx = FreqIndexEF.load(family["ef"])
+    docs, _, _ = read_collection(base)
+    L = idx.num_lists
+    dec = EFTermDecoder(idx, device=device, device_ef=True)
+    t0 = time.perf_counter()
+    got = dec.decode_docids(range(L))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [idx.list_docids(t) for t in range(L)]
+    host_s = time.perf_counter() - t0
+    bad = [t for t in range(L) if not (np.array_equal(got[t], host[t])
+                                       and np.array_equal(got[t], docs[t]))]
+    if bad:
+        fail(f"ef_device: lists {bad[:10]} differ from the host decode or "
+             "the collection")
+    specs = []
+    for t in range(L):
+        _, n, pos = idx._list_header(t)
+        specs.append((pos, idx.num_docs, n))
+    t0 = time.perf_counter()
+    prep = ef_device.prepare(idx.docs.words, specs, idx.params)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tens = ef_device.upload(prep, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    total, nwords = prep["sizes"]
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
+    ms = time_ms(lambda: ef_device.decode_tensors(tens), EF_DEVICE_ITERS,
+                 flush)
+    del flush
+    nbytes = prep["words"].nbytes + 4 * total
+    prof = profile_device(lambda: ef_device.decode_tensors(tens), 1,
+                          os.path.join(CACHE, "ef_device_trace.json"))
+    del tens
+    torch.cuda.empty_cache()
+    out = {"lists": L, "ints": total, "high_words": nwords,
+           "word_bytes": int(prep["words"].nbytes),
+           "decoder_card_s": card_s, "host_loop_s": host_s,
+           "prepare_s": prep_s, "upload_s": upload_s, "device_ms": ms,
+           "device_ints_x_sec": total / (ms / 1e3),
+           "host_ints_x_sec": total / host_s,
+           "bound_ms": nbytes / hbm_rate(card_name) * 1e3,
+           "bound_bytes": nbytes, "profile": prof}
+    log(f"ef_device: {out}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = run_queries_tool("ef", family["ef"], wand, qfile, FAMILY_OPS,
+                            "device", ["--device-ef", "--device", device])
+    tool_s = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts["K4_block_copy"] or counts[FUSED]:
+        fail(f"ef serving launched K4 or the class kernels: {counts}")
+    for op in RANKED_OPS:
+        if "engine_variant" in recs[op] or "blocks_kept" in recs[op]:
+            fail(f"ef {op} took the fused store or pruned: {recs[op]}")
+    qs = boolean.parse_query_log(qfile)
+    wdata = ranked.WandData.load(wand)
+    tops = device_batch.ranked_or_batch(idx, dec, wdata, qs, TOPK)
+    worst = 0.0
+    for i, q in enumerate(qs):
+        want = oracle[i][0]
+        if tops[i].shape != want.shape or not np.allclose(
+                tops[i], want, rtol=RTOL, atol=ATOL):
+            fail(f"ef ranked_or query {i} {q}: {tops[i]} != oracle {want}")
+        if want.size:
+            worst = max(worst, float(np.max(np.abs(tops[i] - want)
+                                             / np.abs(want))))
+    totals = {op: check_counts(qs, device_batch.boolean_count_batch(dec, qs,
+                                                                    op),
+                               bool_counts[op], f"ef {op}")
+              for op in ("and", "or")}
+    for op in ("and", "or"):
+        if recs[op]["total_results"] != str(totals[op]):
+            fail(f"ef {op}: the tool counted {recs[op]['total_results']}, "
+                 f"not {totals[op]}")
+    out.update({
+        "records": {op: {k: r[k] for k in ("avg", "q50", "q90", "q95",
+                                           "batch_shape") if k in r}
+                    for op, r in recs.items()},
+        "tool_s": tool_s, "launches": counts, "max_rel_score_err": worst,
+        "total_results": totals,
+    })
+    torch.cuda.empty_cache()
+    return out
+
+
+def native_phase(paths, family, oracle, bool_counts, device="cuda"):
+    """Phase 24: ``tools.queries --engine native`` (the C++ cursor engine
+    on the host) over ``multi_packed_dint``, ``block_optpfor`` and
+    ``ef`` (through the u32 block view): the tool's totals equal the
+    phase-11 counts and the oracle's result counts; then the same engine
+    per query: and/or counts equal the phase-11 counts, ranked top-10
+    scores the oracle's."""
+    from dint_tpu_torch.query import boolean, ranked
+    from dint_tpu_torch.tools import queries as qtool
+
+    idx_path, wand, qfile = paths
+    qs = boolean.parse_query_log(qfile)
+    wdata = ranked.WandData.load(wand)
+    n_ranked = sum(int(o[0].shape[0]) for o in oracle)
+    out = {}
+    for kind in NATIVE_KINDS:
+        path = idx_path if kind == SERVE_TYPE else family[kind]
+        t0 = time.perf_counter()
+        recs = run_queries_tool(kind, path, wand, qfile, NATIVE_OPS, "native",
+                                ["--device", device])
+        tool_s = time.perf_counter() - t0
+        for op, want in (("and", int(np.sum(bool_counts["and"]))),
+                         ("or", int(np.sum(bool_counts["or"]))),
+                         ("ranked_or", n_ranked), ("wand", n_ranked),
+                         ("maxscore", n_ranked)):
+            if recs[op]["total_results"] != str(want):
+                fail(f"native {kind} {op}: {recs[op]['total_results']} "
+                     f"results, not {want}")
+        index, dec = qtool.load_index(kind, path, device)
+        eng = qtool.native_engine(kind, index, dec, wdata)
+        for op in ("and", "or"):
+            _, cnt, _ = eng.run(op, qs, runs=2, k=TOPK)
+            check_counts(qs, cnt, bool_counts[op], f"native {kind} {op}")
+        worst = 0.0
+        for op in RANKED_OPS:
+            _, cnt, scores = eng.run(op, qs, runs=2, k=TOPK)
+            for i, q in enumerate(qs):
+                want = oracle[i][0]
+                got = scores[i][:int(cnt[i])]
+                if got.shape != want.shape or not np.allclose(
+                        got, want, rtol=RTOL, atol=ATOL):
+                    fail(f"native {kind} {op} query {i} {q}: {got} != "
+                         f"oracle {want}")
+                if want.size:
+                    worst = max(worst, float(np.max(np.abs(got - want)
+                                                     / np.abs(want))))
+        out[kind] = {
+            "records": {op: {k: r[k] for k in ("avg", "q50", "q90", "q95",
+                                               "total_results")}
+                        for op, r in recs.items()},
+            "tool_s": tool_s, "max_rel_score_err": worst,
+        }
+        log(f"native engine over {kind}: exact ({tool_s:.1f} s)")
+        del eng, index, dec
+    return out
+
+
+def local_chain_phase(data, base, image_recs, smi, device="cuda"):
+    """Phase 25: ``LocalDecodeEngine`` over the packed per-unit plan
+    (``plan_stream(..., pack_units=True)``) of both DINT streams: launches
+    counted from zero over a warm-up and a timed chain of
+    ``LOCAL_CHAIN_RUNS`` runs (CUDA events) and one ``decode_all``, every
+    list equal to the collection; the chain's salt after
+    ``LOCAL_PLAIN_RUNS`` runs on the card equal to the plain version's on
+    the host.  ints/s beside ``ImageDecodeEngine``'s from phase 4.
+    Returns ({type: record}, {type: launch counts})."""
+    import torch
+
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.kernels import decode_local as dl
+    from dint_tpu_torch.tools import common, decode
+
+    expect, _ = common.gap_lists_of(base + ".docs")
+    recs, counts = {}, {}
+    for t in TYPES:
+        stream, dict_file = data[t]
+        arena, meta = stream_mod.load_stream(stream)
+        view = decode.load_dictionary(t, dict_file).decode_view()
+        lay = decode.units_from_meta(arena, meta, t.startswith("multi"))
+        t0 = time.perf_counter()
+        plan = dl.plan_stream(arena, lay.starts, lay.byte_lens, lay.n,
+                              lay.ctx, lay.b_bits, view, pack_units=True)
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = dl.LocalDecodeEngine(plan, device=device)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        reset_launch_counts()
+        int(eng.decode_chain(LOCAL_CHAIN_RUNS).item())  # warm-up
+        if device == "cpu":  # a rehearsal: the host clock
+            t0 = time.perf_counter()
+            salt = eng.decode_chain(LOCAL_CHAIN_RUNS)
+            secs = time.perf_counter() - t0
+        else:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            salt = eng.decode_chain(LOCAL_CHAIN_RUNS)
+            b.record()
+            b.synchronize()
+            secs = a.elapsed_time(b) / 1e3
+        outs = eng.decode_all()
+        counts[t] = launch_counts()
+        require_fused(counts[t], f"LocalDecodeEngine ({t})")
+        if counts[t][FUSED] not in (0, 2 * LOCAL_CHAIN_RUNS + 1):
+            fail(f"{t}: {counts[t][FUSED]} fused launches for "
+                 f"{LOCAL_CHAIN_RUNS} runs, not {2 * LOCAL_CHAIN_RUNS + 1}")
+        units = eng.gather_units(outs, len(lay.starts), lay.n)
+        lists = [np.zeros(int(n), np.uint32) for n in meta.n]
+        for uid, vals in enumerate(units):
+            p = int(lay.pos_in_list[uid])
+            lists[lay.list_id[uid]][p:p + vals.shape[0]] = vals
+        bad = [i for i, (g, e) in enumerate(zip(lists, expect))
+               if not np.array_equal(g, e)]
+        if bad:
+            fail(f"{t}: LocalDecodeEngine lists {bad[:10]} differ from the "
+                 "collection")
+        card = int(eng.decode_chain(LOCAL_PLAIN_RUNS).item())
+        plain = int(dl.LocalDecodeEngine(plan, device="cpu")
+                    .decode_chain(LOCAL_PLAIN_RUNS).item())
+        if card != plain:
+            fail(f"{t}: chain salt {card:#x} on the card, {plain:#x} from "
+                 "the plain version")
+        # beside the image engine of the same stream, in turns: the fused
+        # launch alone (L2 flushed) and a whole chain
+        img = dl.ImageDecodeEngine(dl.plan_stream_image(
+            arena, lay.starts, lay.byte_lens, lay.n, lay.ctx, lay.b_bits,
+            view), device=device)
+        s = eng._salt(0x9E3779B9)
+        flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
+        turns = time_in_turns({"local_fused": lambda: eng._run(s),
+                               "image_fused": lambda: img._run(s),
+                               "local_chain": lambda: eng.decode_chain(
+                                   LOCAL_CHAIN_RUNS),
+                               "image_chain": lambda: img.decode_chain(
+                                   LOCAL_CHAIN_RUNS)}, 10, flush)
+        del img, flush
+        total = eng.total_ints()
+        recs[t] = {
+            "type": t, "rows": plan.rows, "plan_bytes": plan.plan_bytes(),
+            "classes": {c.mode: c.rows for c in eng._classes},
+            "plan_s": plan_s, "upload_s": upload_s, "runs": LOCAL_CHAIN_RUNS,
+            "ints_x_sec": total * LOCAL_CHAIN_RUNS / secs,
+            "image_engine_ints_x_sec": int(image_recs[t]["ints_x_sec"]),
+            "num_integers": total, "salt": int(salt.item()),
+            "in_turns_ms": turns,
+            "plain_salt_runs": LOCAL_PLAIN_RUNS, "check": "ok",
+            "nvidia_smi": smi,
+        }
+        log(f"LocalDecodeEngine {t}: {recs[t]}")
+        del eng, outs
+        torch.cuda.empty_cache()
+    return recs, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -2166,8 +2638,12 @@ def main(argv=None) -> int:
     log(f"card: {kind} | nvidia-smi: {smi}")
     build_s = build_all()
 
+    mark(t_start, "phase 1")
+
     # 2. data
     base, data = make_data(CACHE, args.seed, NUM_LISTS, NUM_DOCS, AVG_LEN)
+
+    mark(t_start, "phase 2")
 
     # 3. kernels against their twins, and their times
     dec = load_decoder(*data["single_rect_dint"], "single_rect_dint", "cuda")
@@ -2192,6 +2668,8 @@ def main(argv=None) -> int:
     del dec
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 3")
+
     # 4. the decode path, launches counted from zero
     drop_plan_caches(CACHE)
     recs, counts = drive_main_path(data, base, RUNS, "cuda")
@@ -2206,6 +2684,8 @@ def main(argv=None) -> int:
         }), flush=True)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 4")
+
     # 5. the bench path (gather and ladder legs, the store probe),
     # launches counted from zero; the ladder's device-busy time
     bench_rec, bench_legs, bench_counts = drive_bench_path(args.seed)
@@ -2216,10 +2696,14 @@ def main(argv=None) -> int:
     print(json.dumps({"ladder_profile": ladder_prof}), flush=True)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 5")
+
     # 6. K5 against its plain version, and its times
     k5 = check_k5(total, kind, args.k5_old)
     k5["launches"] = bench_counts["K5_store_tile"]
     k5["launches_by_path"] = {"bench": k5["launches"]}
+
+    mark(t_start, "phase 6")
 
     # 7. the ablation path, launches counted from zero; K6 and K7
     # against their plain version and the flat gather, and their times
@@ -2229,6 +2713,8 @@ def main(argv=None) -> int:
                                    "nvidia_smi": smi}}), flush=True)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 7")
+
     # 8-14. serving: data, the serve path (launches counted from zero),
     # K4 against its plain version, exactness, survival pass, host
     # engine, profiler
@@ -2237,6 +2723,7 @@ def main(argv=None) -> int:
                          os.path.join(CACHE, "serve_trace.json"))
     serve["data_s"] = data_s
     oracle = serve.pop("oracle")
+    bool_counts = serve.pop("bool_counts")
     ranked = serve["records"]["ranked_or"]
     print(json.dumps({"serve": {
         "type": "ranked_or", "k": TOPK, "queries": serve["exact"]["queries"],
@@ -2260,14 +2747,20 @@ def main(argv=None) -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phases 8-14")
+
     # 15. the raw chain-scan engine, both DINT types, exact
     raw = raw_phases(data, base, smi)
     print(json.dumps({"raw": raw}), flush=True)
+
+    mark(t_start, "phase 15")
 
     # 16. the zoo: eleven list types through the ladder image, eight
     # through their wire engines, exact
     zoo = zoo_phases(base, smi)
     print(json.dumps({"zoo": {**zoo, "device": kind}}), flush=True)
+
+    mark(t_start, "phase 16")
 
     # 17. the sharded steps at full size on one NCCL rank
     sharded_steps = sharded_steps_phase(data, base)
@@ -2275,10 +2768,14 @@ def main(argv=None) -> int:
                                         "nvidia_smi": smi}}), flush=True)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 17")
+
     # 18. serve_ranked_sharded on one NCCL rank, launches counted from 0
     sharded_serve = sharded_serve_phase(paths, oracle, ranked["avg"])
     print(json.dumps({"sharded_serve": {**sharded_serve, "device": kind,
                                         "nvidia_smi": smi}}), flush=True)
+
+    mark(t_start, "phase 18")
 
     # 19. the statistics merge on the card against numpy's
     stats_merge = stats_merge_phase(base)
@@ -2286,18 +2783,53 @@ def main(argv=None) -> int:
                                       "nvidia_smi": smi}}), flush=True)
     torch.cuda.empty_cache()
 
+    mark(t_start, "phase 19")
+
     # 20. the multi-rank dry run on gloo ranks of the host's CPU (the
     # host has one card, and NCCL runs one rank a card)
     from dint_tpu_torch.parallel import dryrun
 
     dry = dryrun.dryrun_multichip(DRYRUN_RANKS, device="cpu")
     print(json.dumps({"dryrun": dry}), flush=True)
+    mark(t_start, "phase 20")
+
+    # 21. the EF and block index families built at full size, --check
+    family, family_builds = build_family_indexes(base)
+    print(json.dumps({"family_builds": family_builds}), flush=True)
+    mark(t_start, "phase 21")
+
+    # 22. block_optpfor served through K4 (pruned for wand/maxscore),
+    # launches counted from zero, exact
+    block = block_serve_phase(base, paths, family, oracle, bool_counts,
+                              ranked["avg"], kind)
+    print(json.dumps({"block_serve": {**block, "nvidia_smi": smi}}),
+          flush=True)
+    mark(t_start, "phase 22")
+
+    # 23. ef: every list through ef_device on the card, then the row
+    # path of the queries tool (no K4), exact
+    ef_rec = ef_phase(base, paths, family, oracle, bool_counts, kind)
+    print(json.dumps({"ef": {**ef_rec, "device": kind, "nvidia_smi": smi}}),
+          flush=True)
+    mark(t_start, "phase 23")
+
+    # 24. the native cursor engine on the host, three index kinds, exact
+    native = native_phase(paths, family, oracle, bool_counts)
+    print(json.dumps({"native": native}), flush=True)
+    mark(t_start, "phase 24")
+
+    # 25. LocalDecodeEngine.decode_chain over packed per-unit plans
+    local, local_counts = local_chain_phase(data, base, recs, smi)
+    print(json.dumps({"local_chain": {**local, "launches": local_counts,
+                                      "device": kind}}), flush=True)
+    mark(t_start, "phase 25")
 
     def by_path(key):
         return {"decode": sum(c[key] for c in counts.values()),
                 "bench": bench_counts[key], "ablate": ablate_counts[key],
                 "serve": serve["launches"][key],
-                "sharded_serve": sharded_serve["launches"][key]}
+                "sharded_serve": sharded_serve["launches"][key],
+                "local_chain": sum(c[key] for c in local_counts.values())}
 
     for k in kernels:
         # a class kernel's launches: those of its own (the ablation's K1)
@@ -2313,7 +2845,10 @@ def main(argv=None) -> int:
         k["max_abs_err"] = max(k["max_abs_err"],
                                serve["class_errs"][k["name"]])
     k4 = serve.pop("k4")
-    k4["launches_by_path"] = {"serve": k4["launches"]}
+    k4["launches_by_path"] = {"serve": k4["launches"],
+                              "block_serve": block["k4_launches"]}
+    k4["launches"] += block["k4_launches"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], block["k4_max_abs_err"])
     kernels += [k4, k5, *onehot]
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
@@ -2323,7 +2858,10 @@ def main(argv=None) -> int:
                "ablation_launches": ablate_counts, "serve": serve,
                "raw": raw, "zoo": zoo, "sharded_steps": sharded_steps,
                "sharded_serve": sharded_serve, "stats_merge": stats_merge,
-               "dryrun": dry, "wall_s": time.perf_counter() - t_start}
+               "dryrun": dry, "family_builds": family_builds,
+               "block_serve": block, "ef": ef_rec, "native": native,
+               "local_chain": local, "local_chain_launches": local_counts,
+               "wall_s": time.perf_counter() - t_start}
     log(f"done in {summary['wall_s']:.1f} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

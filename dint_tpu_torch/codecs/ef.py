@@ -1,19 +1,16 @@
-"""Partitioned Elias-Fano over indexed sequences (host copy).
+"""Elias-Fano sequence family (host copy of ``dint_tpu/codecs/ef.py``).
 
-The port's copy of the part of ``dint_tpu/codecs/ef.py`` that the
-whole-list ``pef`` type writes and decodes:
-``partitioned_sequence(indexed_sequence)`` and what it is built of.
-Every writer reproduces the reference's exact bit layout and size
+Bit-layout-exact rebuild of the reference's sequences
 (compact_elias_fano.hpp:14-136, compact_ranked_bitvector.hpp:14-115,
-all_ones_sequence.hpp, indexed_sequence.hpp:24-87,
-partitioned_sequence.hpp:21-120, optimal_partition.hpp:69-121,
-integer_codes.hpp) so bitsize / bpi parity is exact.  The strict,
-positive and uniform sequences of the EF index families are not here.
-Encoding is numpy-vectorized (batched scatter of
+all_ones_sequence.hpp, indexed_sequence.hpp:24-87, strict_sequence.hpp,
+strict_elias_fano.hpp:12-36, positive_sequence.hpp:15-30,
+partitioned_sequence.hpp:21-120, uniform_partitioned_sequence.hpp:
+19-105, optimal_partition.hpp:69-121, integer_codes.hpp) so bitsize /
+bpi parity is exact.  Encoding is numpy-vectorized (batched scatter of
 high bits, strided field packing); decoding materializes whole
 sequences (batched queries consume dense arrays, and successor
-queries become searchsorted), instead of
-the reference's pointer-walking enumerators.
+queries become searchsorted), instead of the reference's
+pointer-walking enumerators (those are ``codecs/ef_enum.py``).
 """
 
 from __future__ import annotations
@@ -353,6 +350,98 @@ class indexed_sequence:
 
 
 # ---------------------------------------------------------------------------
+# strict variants (strictly increasing; sampling of zeros disabled)
+# ---------------------------------------------------------------------------
+
+
+def _strict_params(p: GlobalParameters) -> GlobalParameters:
+    sp = GlobalParameters(**p.__dict__)
+    sp.ef_log_sampling0 = 63
+    sp.rb_log_rank1_sampling = 63
+    return sp
+
+
+class strict_elias_fano:
+    @staticmethod
+    def bitsize(p, universe, n) -> int:
+        assert universe >= n
+        return compact_elias_fano.bitsize(p, universe - n + 1, n)
+
+    @staticmethod
+    def write(bb, values, universe, n, p) -> None:
+        v = np.asarray(values, dtype=np.uint64)[:n]
+        shifted = v - np.arange(n, dtype=np.uint64)
+        compact_elias_fano.write(bb, shifted, universe - n + 1, n, p)
+
+    @staticmethod
+    def decode_all(words, offset, universe, n, p) -> np.ndarray:
+        v = compact_elias_fano.decode_all(words, offset, universe - n + 1, n, p)
+        return v + np.arange(n, dtype=np.uint64)
+
+
+class strict_sequence:
+    TYPE_BITS = 1
+
+    @classmethod
+    def _choose(cls, p, universe, n):
+        sp = _strict_params(p)
+        best_cost = all_ones_sequence.bitsize(p, universe, n)
+        best = "all_ones"
+        ef = strict_elias_fano.bitsize(sp, universe, n) + cls.TYPE_BITS
+        if ef < best_cost:
+            best_cost, best = ef, "ef"
+        rb = compact_ranked_bitvector.bitsize(sp, universe, n) + cls.TYPE_BITS
+        if rb < best_cost:
+            best_cost, best = rb, "rb"
+        return best, best_cost
+
+    @classmethod
+    def bitsize(cls, p, universe, n) -> int:
+        return cls._choose(p, universe, n)[1]
+
+    @classmethod
+    def write(cls, bb, values, universe, n, p) -> None:
+        sp = _strict_params(p)
+        best, _ = cls._choose(p, universe, n)
+        if all_ones_sequence.bitsize(p, universe, n) != 0:
+            bb.append_bits({"ef": 0, "rb": 1, "all_ones": 2}[best], cls.TYPE_BITS)
+        if best == "ef":
+            strict_elias_fano.write(bb, values, universe, n, sp)
+        elif best == "rb":
+            compact_ranked_bitvector.write(bb, values, universe, n, sp)
+
+    @classmethod
+    def decode_all(cls, words, offset, universe, n, p) -> np.ndarray:
+        sp = _strict_params(p)
+        if all_ones_sequence.bitsize(p, universe, n) == 0:
+            return np.arange(n, dtype=np.uint64)
+        t = bitio.read_bits_scalar(words, offset, cls.TYPE_BITS)
+        off = offset + cls.TYPE_BITS
+        if t == 0:
+            return strict_elias_fano.decode_all(words, off, universe, n, sp)
+        return compact_ranked_bitvector.decode_all(words, off, universe, n, sp)
+
+
+class positive_sequence:
+    """Positive values stored as prefix sums (positive_sequence.hpp:15-30)."""
+
+    def __init__(self, base=strict_sequence):
+        self.base = base
+
+    def write(self, bb, values, universe, n, p) -> None:
+        v = np.asarray(values, dtype=np.uint64)[:n]
+        assert (v > 0).all()
+        self.base.write(bb, np.cumsum(v), universe, n, p)
+
+    def decode_all(self, words, offset, universe, n, p) -> np.ndarray:
+        c = self.base.decode_all(words, offset, universe, n, p).astype(np.int64)
+        out = np.empty(n, dtype=np.uint64)
+        out[0] = c[0]
+        out[1:] = (c[1:] - c[:-1]).astype(np.uint64)
+        return out
+
+
+# ---------------------------------------------------------------------------
 # optimal_partition (the PEF partitioning DP, optimal_partition.hpp:69-121)
 # ---------------------------------------------------------------------------
 
@@ -414,23 +503,29 @@ def optimal_partition(values: np.ndarray, universe: int, cost_fun,
 
 
 # ---------------------------------------------------------------------------
-# partitioned sequence
+# partitioned / uniform partitioned sequences
 # ---------------------------------------------------------------------------
 
 
 class _partitioned_base:
-    """Writer/reader of partitioned_sequence (variable partitions)."""
+    """Shared writer/reader for partitioned_sequence (variable partitions)
+    and uniform_partitioned_sequence (fixed 2^log_partition_size)."""
 
-    def __init__(self, base=indexed_sequence):
+    def __init__(self, base=indexed_sequence, uniform=False):
         self.base = base
+        self.uniform = uniform
 
     def _partition_points(self, values, universe, n, p) -> List[int]:
-        if self.base is indexed_sequence:
+        if self.uniform:
+            ps = 1 << p.log_partition_size
+            return list(range(ps, n, ps)) + [n]
+        strict = self.base is strict_sequence
+        if strict or self.base is indexed_sequence:
             # native DP (same arithmetic/closed-form costs; parity-
             # gated in tests) — the python loop below is the oracle
             part = bitnative.opt_partition(
                 values, universe, p, CONF.eps1, CONF.eps2, CONF.fix_cost,
-                False,
+                strict,
             )
             if part is not None:
                 return part
@@ -469,13 +564,15 @@ class _partitioned_base:
             upper_bounds.append(ub)
             cur_base = ub + 1
             cur_i = endpos
-        sizes_bb = BitBuilder()
-        compact_elias_fano.write(sizes_bb, partition[:-1], n, partitions - 1, p)
+        if not self.uniform:
+            sizes_bb = BitBuilder()
+            compact_elias_fano.write(sizes_bb, partition[:-1], n, partitions - 1, p)
         ub_bb = BitBuilder()
         compact_elias_fano.write(ub_bb, upper_bounds, universe, partitions + 1, p)
         endpoint_bits = ceil_log2(seq_bb.size + 1)
         write_gamma(bb, endpoint_bits)
-        bb.append(sizes_bb)
+        if not self.uniform:
+            bb.append(sizes_bb)
         bb.append(ub_bb)
         for e in endpoints[:-1]:
             bb.append_bits(e, endpoint_bits)
@@ -483,9 +580,10 @@ class _partitioned_base:
 
     def decode_all(self, words, offset: int, universe: int, n: int,
                    p: GlobalParameters) -> np.ndarray:
-        if self.base is indexed_sequence:
+        if self.base is indexed_sequence or self.base is strict_sequence:
             out = bitnative.pef_decode_all(
-                words, offset, universe, n, p, False, False,
+                words, offset, universe, n, p, self.uniform,
+                self.base is strict_sequence,
             )
             if out is not None:
                 return out
@@ -502,10 +600,14 @@ class _partitioned_base:
             return rel + np.uint64(cur_base)
         endpoint_bits = read_gamma(r)
         pos = r.pos
-        so = ef_offsets(pos, n, partitions - 1, p)
-        sizes = compact_elias_fano.decode_all(words, pos, n, partitions - 1, p)
-        pos = so.end
-        partition = list(sizes.astype(np.int64)) + [n]
+        if not self.uniform:
+            so = ef_offsets(pos, n, partitions - 1, p)
+            sizes = compact_elias_fano.decode_all(words, pos, n, partitions - 1, p)
+            pos = so.end
+            partition = list(sizes.astype(np.int64)) + [n]
+        else:
+            ps = 1 << p.log_partition_size
+            partition = list(range(ps, n, ps)) + [n]
         uo = ef_offsets(pos, universe, partitions + 1, p)
         ubs = compact_elias_fano.decode_all(words, pos, universe, partitions + 1, p)
         pos = uo.end
@@ -531,4 +633,8 @@ class _partitioned_base:
 
 
 def partitioned_sequence(base=indexed_sequence):
-    return _partitioned_base(base)
+    return _partitioned_base(base, uniform=False)
+
+
+def uniform_partitioned_sequence(base=indexed_sequence):
+    return _partitioned_base(base, uniform=True)

@@ -26,9 +26,12 @@ Two engines run the class kernels.  ``ImageDecodeEngine`` decodes a
 whole stream's packed image and keeps the reference package's
 raw-output contract and its chained, salted timing protocol, so its
 outputs and its chain's final salt equal ``dint_tpu``'s bit for bit.
-``LocalDecodeEngine`` decodes the per-unit ``LocalPlan`` of the index
-query path (one 256-int block a unit, never packed across units) and
-rebuilds docids with ``_docid_rebuild``.  u32 data travels as int32 bit
+``LocalDecodeEngine`` decodes a ``LocalPlan``: the per-unit plan of the
+index query path (one 256-int block a unit), whose docids it rebuilds
+with ``_docid_rebuild``, or a packed whole-stream plan
+(``plan_stream(..., pack_units=True)``), with the same chain.  The
+plans come from the native planner, or from the pure-Python walk
+(``_plan_stream_py``) when the caller asks for it.  u32 data travels as int32 bit
 patterns; wrap arithmetic on it is done in int64 and masked.
 
 Two more plain forms of the same gather live here for the kernel
@@ -43,12 +46,14 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..backend import resolve_device
+from ..config import EXCEPTIONS, MAX_ENTRY_SIZE
+from ..dictionary.dictionary import DecodeView
 from . import cuda_ext
 
 W_TOKENS = int(os.environ.get("DINT_TPU_W_TOKENS", "128"))  # planner chop
@@ -520,6 +525,20 @@ def zero(n, salt, n_out: int = N_OUT, out=None):
     return out
 
 
+def single_class_chain(vidx, tab, n, runs: int) -> torch.Tensor:
+    """The reference's single-class chain (``_pallas_decode_fns``, for
+    tests there): every row through K1 (``gather32``), ``runs`` salted
+    decodes from salt 1, each next salt the u32 sum of the run's output
+    + salt + 1.  vidx (R, N_OUT) uint8, tab (R, TABLE_CLS) int32, n (R,)
+    int32; returns the final salt, a 0-d int64 tensor on their device."""
+    salt = torch.ones(1, dtype=torch.int64, device=vidx.device)
+    out = torch.empty(vidx.shape, dtype=torch.int32, device=vidx.device)
+    for _ in range(runs):
+        gather32(vidx, tab, n, salt, out)
+        salt = (_u32_sum(out) + salt + 1) & _MASK
+    return salt.reshape(())
+
+
 def decode_classes_plain(n0, cls16, cls32, salt, exact: bool = False,
                          n_out: int = N_OUT):
     """The fused class launch in plain PyTorch: the three twins written
@@ -644,11 +663,17 @@ _OFF_MASK = (1 << _LEN_SHIFT) - 1
 
 @dataclass
 class LocalPlan:
-    """Per-unit serving plan of the index query path: every unit (one
-    256-int block) is chopped into rows of at most W_TOKENS local tokens,
+    """Per-unit serving plan: every unit (one 256-int block on the index
+    query path) is chopped into rows of at most W_TOKENS local tokens,
     N_OUT outputs and TABLE_CLS content words, each row with its own
-    local dictionary.  Rows are never packed across units, so each row
-    has one docid base (``LocalDecodeEngine.decode_docids_all``)."""
+    local dictionary.
+
+    Packed plans (``pack_plan_units``) hold MULTIPLE units per row; there
+    unit_id/out_pos describe only each row's FIRST segment and the seg_*
+    arrays carry the full row -> unit mapping.  The device kernels are
+    the same either way (out[r, j] = table[r, vidx[r, j]]); only the
+    host-side unit gathering differs, and only per-unit plans have one
+    docid base a row (``LocalDecodeEngine.decode_docids_all``)."""
 
     tokens: np.ndarray  # (R, W_TOKENS) i32 local entry ids
     meta: np.ndarray  # (R, W_TOKENS) i32 len<<13|off per local id
@@ -656,32 +681,399 @@ class LocalPlan:
     out_n: np.ndarray  # (R,) i32 ints produced per row
     unit_id: np.ndarray  # (R,) i64 unit of each row
     out_pos: np.ndarray  # (R,) i64 output offset of the row in its unit
+    seg_row: np.ndarray = None  # (S,) i64 row of each segment (packed)
+    seg_unit: np.ndarray = None  # (S,) i64 unit of each segment
+    seg_pos: np.ndarray = None  # (S,) i64 output offset within the unit
+    seg_off: np.ndarray = None  # (S,) i32 output offset within the row
+    seg_len: np.ndarray = None  # (S,) i32 ints of the segment
 
     @property
     def rows(self) -> int:
         return int(self.tokens.shape[0])
 
+    @property
+    def packed(self) -> bool:
+        return self.seg_row is not None
 
-def plan_stream(arena, starts, byte_lens, ns, ctxs, b_bits, view) -> LocalPlan:
-    """Compile the units into a per-unit LocalPlan with the native
-    planner (native/dint_planner.cpp).  Raises with the build error when
-    the planner cannot be built."""
-    from ..utils import nativebuild
-    from . import planner_native
-
-    res = planner_native.plan_stream_native(
-        arena, starts, byte_lens, ns, ctxs, b_bits, view,
-        W_TOKENS, N_OUT, TABLE_CLS,
-    )
-    if res is None:
-        err = nativebuild.errors.get("libdintplan.so",
-                                     "native/dint_planner.cpp not found")
-        raise RuntimeError(
-            f"native planner unavailable ({err.strip()}); the pure-Python "
-            "planner walk is not ported: ROADMAP.md 'Modules still to port' "
-            "item 4"
+    def plan_bytes(self) -> int:
+        return (
+            self.tokens.nbytes + self.meta.nbytes + self.table.nbytes
+            + self.out_n.nbytes
         )
-    return LocalPlan(*res)
+
+
+def _parse_unit_tokens(
+    arena: np.ndarray,
+    start: int,
+    byte_len: int,
+    n: int,
+    b: int,
+    view: DecodeView,
+    ctx: int,
+) -> Tuple[List[int], List[Tuple[int, ...]]]:
+    """Walk one unit's codeword stream; return (lens, contents).
+
+    lens[i] = ints emitted by local entry i, contents[i] its content
+    tuple.
+    Runs are split into 16-zero entries; exceptions become 1-int
+    entries.  Clean units (no token < EXCEPTIONS) vectorize; dirty
+    units take the scalar walk (rare).
+    """
+    tw = b // 8
+    count = byte_len // tw
+    base = arena[start : start + count * tw]
+    if tw == 2:
+        toks = base[0::2].astype(np.int64) | (base[1::2].astype(np.int64) << 8)
+    else:
+        toks = base.astype(np.int64)
+    lengths = view.lengths[ctx]
+    offsets = view.offsets[ctx]
+    table = view.table
+
+    out_lens: List[int] = []
+    out_content: List[Tuple[int, ...]] = []
+
+    if not (toks < EXCEPTIONS).any():
+        # clean: every token is a codeword
+        cws = toks
+        lns = lengths[cws]
+        for cw, ln in zip(cws, lns):
+            if ln > MAX_ENTRY_SIZE:
+                full, rem = divmod(int(ln), MAX_ENTRY_SIZE)
+                out_lens.extend([MAX_ENTRY_SIZE] * full)
+                out_content.extend([(0,) * MAX_ENTRY_SIZE] * full)
+                if rem:
+                    out_lens.append(rem)
+                    out_content.append((0,) * rem)
+            else:
+                off = int(offsets[cw])
+                out_lens.append(int(ln))
+                out_content.append(
+                    tuple(int(x) for x in table[off : off + int(ln)])
+                )
+    else:
+        i = 0
+        produced = 0
+        while produced < n:
+            cw = int(toks[i])
+            if cw >= EXCEPTIONS:
+                ln = int(lengths[cw])
+                if ln > MAX_ENTRY_SIZE:
+                    full, rem = divmod(ln, MAX_ENTRY_SIZE)
+                    out_lens.extend([MAX_ENTRY_SIZE] * full)
+                    out_content.extend([(0,) * MAX_ENTRY_SIZE] * full)
+                    if rem:
+                        out_lens.append(rem)
+                        out_content.append((0,) * rem)
+                else:
+                    off = int(offsets[cw])
+                    out_lens.append(ln)
+                    out_content.append(
+                        tuple(int(x) for x in table[off : off + ln])
+                    )
+                produced += ln
+                i += 1
+            elif cw == 1:  # 4-byte exception
+                if tw == 2:
+                    v = int(toks[i + 1]) | (int(toks[i + 2]) << 16)
+                    i += 3
+                else:
+                    v = (
+                        int(toks[i + 1])
+                        | (int(toks[i + 2]) << 8)
+                        | (int(toks[i + 3]) << 16)
+                        | (int(toks[i + 4]) << 24)
+                    )
+                    i += 5
+                out_lens.append(1)
+                out_content.append((v,))
+                produced += 1
+            else:  # 2-byte exception
+                if tw == 2:
+                    v = int(toks[i + 1])
+                    i += 2
+                else:
+                    v = int(toks[i + 1]) | (int(toks[i + 2]) << 8)
+                    i += 3
+                out_lens.append(1)
+                out_content.append((v,))
+                produced += 1
+    assert sum(out_lens) == n, (sum(out_lens), n)
+    return out_lens, out_content
+
+
+def plan_stream(arena, starts, byte_lens, ns, ctxs, b_bits, view,
+                prefer_native: bool = True,
+                pack_units: bool = False) -> LocalPlan:
+    """Compile all units into a LocalPlan.
+
+    ``prefer_native`` (the default) runs the native C++ planner
+    (native/dint_planner.cpp, bit-identical plans) and raises with its
+    build error when it cannot be built; the pure-Python walk
+    (``_plan_stream_py``) runs only when the caller passes
+    ``prefer_native=False``, never in its place.  ``pack_units`` runs
+    the multi-unit row-merging pass afterwards (``pack_plan_units``):
+    for whole-stream decode; the index query path keeps per-unit rows,
+    because the docid rebuild needs one base a row."""
+    if prefer_native:
+        from ..utils import nativebuild
+        from . import planner_native
+
+        res = planner_native.plan_stream_native(
+            arena, starts, byte_lens, ns, ctxs, b_bits, view,
+            W_TOKENS, N_OUT, TABLE_CLS,
+        )
+        if res is None:
+            err = nativebuild.errors.get("libdintplan.so",
+                                         "native/dint_planner.cpp not found")
+            raise RuntimeError(
+                f"native planner unavailable ({err.strip()}); pass "
+                "prefer_native=False for the pure-Python planner walk"
+            )
+        plan = LocalPlan(*res)
+    else:
+        plan = _plan_stream_py(arena, starts, byte_lens, ns, ctxs, b_bits,
+                               view)
+    if pack_units:
+        plan = pack_plan_units(plan)
+    return plan
+
+
+def _plan_stream_py(
+    arena: np.ndarray,
+    starts: Sequence[int],
+    byte_lens: Sequence[int],
+    ns: Sequence[int],
+    ctxs: Sequence[int],
+    b_bits: Sequence[int],
+    view: DecodeView,
+) -> LocalPlan:
+    """Pure-Python reference planner (the oracle the native one mirrors)."""
+    rows_tokens: List[np.ndarray] = []
+    rows_meta: List[np.ndarray] = []
+    rows_table: List[np.ndarray] = []
+    rows_n: List[int] = []
+    rows_unit: List[int] = []
+    rows_pos: List[int] = []
+
+    for u in range(len(starts)):
+        lens, contents = _parse_unit_tokens(
+            arena,
+            int(starts[u]),
+            int(byte_lens[u]),
+            int(ns[u]),
+            int(b_bits[u]),
+            view,
+            int(ctxs[u]),
+        )
+        # chop into sub-units under the three budgets
+        i = 0
+        out_pos = 0
+        T = len(lens)
+        while i < T:
+            j = i
+            outs = 0
+            vocab: Dict[Tuple[int, ...], int] = {}
+            words = MAX_ENTRY_SIZE  # leading zero region
+            tok_ids: List[int] = []
+            # greedy extend (token budget is implied by outs <= N_OUT
+            # since every local token emits >= 1 int)
+            while j < T and (j - i) < W_TOKENS and outs + lens[j] <= N_OUT:
+                c = contents[j]
+                if c not in vocab:
+                    if all(x == 0 for x in c):
+                        # zeros live in the shared leading region
+                        extra = 0
+                    else:
+                        extra = len(c)
+                    if words + extra > TABLE_CLS:
+                        break
+                    vocab[c] = -1  # placeholder
+                    words += extra
+                outs += lens[j]
+                tok_ids.append(j)
+                j += 1
+            assert j > i, "single codeword exceeds budgets"
+            # build local dict: order vocab by frequency desc
+            freq: Dict[Tuple[int, ...], int] = {}
+            for t in tok_ids:
+                freq[contents[t]] = freq.get(contents[t], 0) + 1
+            ordered = sorted(freq.items(), key=lambda kv: (-kv[1], kv[0]))
+            meta = np.zeros(W_TOKENS, dtype=np.int32)
+            tab = np.zeros(TABLE_CLS, dtype=np.uint32)
+            pos = MAX_ENTRY_SIZE
+            local_id: Dict[Tuple[int, ...], int] = {}
+            for vi, (c, _) in enumerate(ordered):
+                local_id[c] = vi
+                if all(x == 0 for x in c):
+                    off = 0
+                else:
+                    off = pos
+                    tab[pos : pos + len(c)] = c
+                    pos += len(c)
+                meta[vi] = np.int32((len(c) << _LEN_SHIFT) | off)
+            toks = np.full(W_TOKENS, len(ordered), dtype=np.int32)
+            toks[: j - i] = [local_id[contents[t]] for t in tok_ids]
+            # padding id has meta 0 (len 0)
+            rows_tokens.append(toks)
+            rows_meta.append(meta)
+            rows_table.append(tab)
+            rows_n.append(outs)
+            rows_unit.append(u)
+            rows_pos.append(out_pos)
+            out_pos += outs
+            i = j
+
+    return LocalPlan(
+        np.stack(rows_tokens),
+        np.stack(rows_meta),
+        np.stack(rows_table),
+        np.asarray(rows_n, np.int32),
+        np.asarray(rows_unit, np.int64),
+        np.asarray(rows_pos, np.int64),
+    )
+
+
+def pack_plan_units(plan: LocalPlan) -> LocalPlan:
+    """Merge consecutive rows into multi-unit rows (the occupancy pass).
+
+    Per-unit planning leaves every unit's last row partially filled,
+    and a row costs the gather the same whatever it holds.  This pass
+    greedily merges rows while three budgets hold — combined tokens
+    <= W_TOKENS-1 (the padding id needs a meta slot), combined outputs
+    <= N_OUT, combined content words <= TABLE_CLS (each row's 16-word
+    leading zero region is shared) — first-fit decreasing within each
+    table width class, and records a per-row SEGMENT map so
+    gather_units can split merged outputs back into units.  Local
+    vocabularies are concatenated without cross-row dedup (a bound, not
+    a correctness issue).  The device kernels are untouched.  The
+    reference's pass, row for row (held equal by a test)."""
+    R = plan.rows
+    if R == 0:
+        return plan
+    mlens = (np.take_along_axis(plan.meta, plan.tokens, axis=1)
+             >> _LEN_SHIFT)
+    tcount = (mlens > 0).sum(axis=1).astype(np.int64)
+    vcount = ((plan.meta >> _LEN_SHIFT) > 0).sum(axis=1).astype(np.int64)
+    offs = (plan.meta & _OFF_MASK).astype(np.int64)
+    lens = (plan.meta >> _LEN_SHIFT).astype(np.int64)
+    words = np.maximum((offs + lens).max(axis=1), MAX_ENTRY_SIZE)
+    out_n = plan.out_n.astype(np.int64)
+    is16 = plan.table.max(axis=1) < (1 << 16)
+
+    # ---- first-fit-decreasing bin packing, per table-width class ----
+    # (row order is free: the engine permutes rows into width classes
+    # anyway and the segment map carries unit identity; packing within
+    # a class keeps u16 tables u16)
+    MAX_OPEN = 48  # bounded open-bin scan keeps FFD near-linear
+    bins: List[List[int]] = []  # row ids per merged row
+    bin_state: List[Tuple[int, int, int]] = []  # (outs, words-16 sum, toks)
+    for cls in (True, False):
+        rows_c = np.flatnonzero(is16 == cls)
+        if rows_c.shape[0] == 0:
+            continue
+        order = rows_c[np.argsort(-out_n[rows_c], kind="stable")]
+        open_bins: List[int] = []
+        for r in order:
+            o = int(out_n[r])
+            w = int(words[r]) - MAX_ENTRY_SIZE
+            t = int(tcount[r])
+            placed = -1
+            for bi in open_bins:
+                bo, bw, bt = bin_state[bi]
+                if bo + o <= N_OUT and bw + w <= TABLE_CLS - MAX_ENTRY_SIZE \
+                        and bt + t <= W_TOKENS - 1:
+                    placed = bi
+                    break
+            if placed < 0:
+                placed = len(bins)
+                bins.append([])
+                bin_state.append((0, 0, 0))
+                open_bins.append(placed)
+            bins[placed].append(int(r))
+            bo, bw, bt = bin_state[placed]
+            bin_state[placed] = (bo + o, bw + w, bt + t)
+            if bin_state[placed][0] > N_OUT - 8:
+                open_bins.remove(placed)
+            elif len(open_bins) > MAX_OPEN:
+                open_bins.pop(0)
+
+    new_tokens: List[np.ndarray] = []
+    new_meta: List[np.ndarray] = []
+    new_table: List[np.ndarray] = []
+    new_n: List[int] = []
+    seg_row: List[int] = []
+    seg_unit: List[int] = []
+    seg_pos: List[int] = []
+    seg_off: List[int] = []
+    seg_len: List[int] = []
+    first_unit: List[int] = []
+    first_pos: List[int] = []
+
+    for group in bins:
+        group.sort()  # stream order within the merged row
+        r0 = group[0]
+        cur_tok = plan.tokens[r0].copy()
+        cur_meta = plan.meta[r0].copy()
+        cur_tab = plan.table[r0].copy()
+        cur_outs = int(out_n[r0])
+        cur_words = int(words[r0])
+        cur_t = int(tcount[r0])
+        cur_v = int(vcount[r0])
+        rid = len(new_n)
+        seg_row.append(rid)
+        seg_unit.append(int(plan.unit_id[r0]))
+        seg_pos.append(int(plan.out_pos[r0]))
+        seg_off.append(0)
+        seg_len.append(cur_outs)
+        for r in group[1:]:
+            t, v, w, o = (
+                int(tcount[r]), int(vcount[r]), int(words[r]),
+                int(out_n[r]),
+            )
+            shift = cur_words - MAX_ENTRY_SIZE
+            m = plan.meta[r, :v].astype(np.int64)
+            m_off = m & _OFF_MASK
+            m_len = m >> _LEN_SHIFT
+            new_off = np.where(m_off == 0, 0, m_off + shift)
+            cur_meta[cur_v : cur_v + v] = (
+                (m_len << _LEN_SHIFT) | new_off
+            ).astype(np.int32)
+            cur_tok[cur_t : cur_t + t] = plan.tokens[r, :t] + cur_v
+            pad_id = cur_v + v
+            cur_tok[cur_t + t :] = pad_id
+            cur_tab[cur_words : cur_words + (w - MAX_ENTRY_SIZE)] = (
+                plan.table[r, MAX_ENTRY_SIZE : w]
+            )
+            seg_row.append(rid)
+            seg_unit.append(int(plan.unit_id[r]))
+            seg_pos.append(int(plan.out_pos[r]))
+            seg_off.append(cur_outs)
+            seg_len.append(o)
+            cur_outs += o
+            cur_words += w - MAX_ENTRY_SIZE
+            cur_t += t
+            cur_v += v
+        new_tokens.append(cur_tok)
+        new_meta.append(cur_meta)
+        new_table.append(cur_tab)
+        new_n.append(cur_outs)
+        first_unit.append(seg_unit[-len(group)])
+        first_pos.append(seg_pos[-len(group)])
+
+    return LocalPlan(
+        np.stack(new_tokens),
+        np.stack(new_meta),
+        np.stack(new_table),
+        np.asarray(new_n, np.int32),
+        np.asarray(first_unit, np.int64),
+        np.asarray(first_pos, np.int64),
+        np.asarray(seg_row, np.int64),
+        np.asarray(seg_unit, np.int64),
+        np.asarray(seg_pos, np.int64),
+        np.asarray(seg_off, np.int32),
+        np.asarray(seg_len, np.int32),
+    )
 
 
 def plan_to_vidx(plan: LocalPlan) -> np.ndarray:
@@ -709,6 +1101,46 @@ def plan_to_vidx(plan: LocalPlan) -> np.ndarray:
     rows_flat = np.repeat(np.arange(R, dtype=np.int64), n)
     vidx[rows_flat, j_flat] = rep_off + j_flat - rep_start
     return vidx
+
+
+def save_plan(plan: LocalPlan, path: str) -> None:
+    extra = {}
+    if plan.packed:
+        extra = dict(
+            seg_row=plan.seg_row, seg_unit=plan.seg_unit,
+            seg_pos=plan.seg_pos, seg_off=plan.seg_off,
+            seg_len=plan.seg_len,
+        )
+    np.savez(
+        path,
+        version=np.asarray([PLAN_VERSION, W_TOKENS, N_OUT, TABLE_CLS]),
+        tokens=plan.tokens,
+        meta=plan.meta,
+        table=plan.table,
+        out_n=plan.out_n,
+        unit_id=plan.unit_id,
+        out_pos=plan.out_pos,
+        **extra,
+    )
+
+
+def load_plan(path: str):
+    try:
+        z = np.load(path)
+        if list(z["version"]) != [PLAN_VERSION, W_TOKENS, N_OUT, TABLE_CLS]:
+            return None
+        segs = (
+            (z["seg_row"], z["seg_unit"], z["seg_pos"], z["seg_off"],
+             z["seg_len"])
+            if "seg_row" in z
+            else (None,) * 5
+        )
+        return LocalPlan(
+            z["tokens"], z["meta"], z["table"], z["out_n"], z["unit_id"],
+            z["out_pos"], *segs,
+        )
+    except Exception:
+        return None
 
 
 def _docid_rebuild(gaps: torch.Tensor, base: torch.Tensor,
@@ -815,27 +1247,6 @@ class _ClassEngine:
         tile)."""
         return self.decode(salt)
 
-
-class ImageDecodeEngine(_ClassEngine):
-    """Device runner over a DecodeImage: uploads the class arrays and
-    runs them (one fused launch a run) with the reference package's
-    chained, salted protocol."""
-
-    def __init__(self, img: DecodeImage, row_tile: int | None = None,
-                 device="cuda"):
-        self.device = resolve_device(device)
-        self.image = img
-        R_max = max(img.n0.shape[0], img.n16.shape[0], img.n32.shape[0], 1)
-        self._upload(
-            [(0, None, None, img.n0), (16, img.vidx16, img.tab16, img.n16),
-             (32, img.vidx32, img.tab32, img.n32)],
-            row_tile or _default_row_tile(R_max),
-        )
-        self.plan_bytes = img.device_bytes()
-
-    def total_ints(self) -> int:
-        return self.image.total_ints()
-
     def decode_chain(self, runs: int) -> torch.Tensor:
         """Run ``runs`` salted decodes back to back, each run's salt the
         u32 sum of the previous run's output (+ salt + 1), and return the
@@ -863,6 +1274,27 @@ class ImageDecodeEngine(_ClassEngine):
             salt = nxt & _MASK
         return salt.reshape(())
 
+
+class ImageDecodeEngine(_ClassEngine):
+    """Device runner over a DecodeImage: uploads the class arrays and
+    runs them (one fused launch a run) with the reference package's
+    chained, salted protocol."""
+
+    def __init__(self, img: DecodeImage, row_tile: int | None = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.image = img
+        R_max = max(img.n0.shape[0], img.n16.shape[0], img.n32.shape[0], 1)
+        self._upload(
+            [(0, None, None, img.n0), (16, img.vidx16, img.tab16, img.n16),
+             (32, img.vidx32, img.tab32, img.n32)],
+            row_tile or _default_row_tile(R_max),
+        )
+        self.plan_bytes = img.device_bytes()
+
+    def total_ints(self) -> int:
+        return self.image.total_ints()
+
     def gather_units(self, outs, num_units: int, unit_ns) -> List[np.ndarray]:
         """Per-unit u32 arrays from a decode_all output."""
         host = outs.cpu().numpy().view(np.uint32).reshape(-1, N_OUT)
@@ -882,13 +1314,18 @@ class ImageDecodeEngine(_ClassEngine):
 
 
 class LocalDecodeEngine(_ClassEngine):
-    """Device runner over a per-unit LocalPlan (the index query path).
+    """Device runner over a LocalPlan: per-unit (the index query path)
+    or packed (``plan_stream(..., pack_units=True)``, whole-stream
+    decode).
 
     The plan's rows are split into the three table width classes (zero,
     packed u16, i32), each padded to the row tile, exactly as the
     reference package's split path lays them out
     (``dint_tpu/kernels/decode_local.py:1247-1340``); the class kernels
-    decode them.  ``decode_docids_all`` adds the docid rebuild."""
+    decode them, one fused launch a run, and ``decode_chain`` runs the
+    salted chain with ``ImageDecodeEngine``'s rule.
+    ``decode_docids_all`` (per-unit plans only) adds the docid
+    rebuild."""
 
     def __init__(self, plan: LocalPlan, row_tile: int | None = None,
                  device="cuda"):
@@ -937,6 +1374,10 @@ class LocalDecodeEngine(_ClassEngine):
         Pure plan state, hosted once like vidx (host numpy)."""
         if self._row_carry is None:
             plan = self.plan
+            assert not plan.packed, (
+                "docid rebuild needs per-unit rows; plan with "
+                "pack_units=False for the index path"
+            )
             vals = np.take_along_axis(
                 plan.table, plan_to_vidx(plan), axis=1
             ).astype(np.uint64)
@@ -978,15 +1419,25 @@ class LocalDecodeEngine(_ClassEngine):
 
     def gather_units(self, outs, num_units: int, unit_ns) -> List[np.ndarray]:
         """Per-unit u32 arrays from a decode_all / decode_docids_all
-        output (one vectorized scatter over every row)."""
+        output (one vectorized scatter over every row, or over every
+        segment of a packed plan)."""
         host = outs.cpu().numpy().view(np.uint32).reshape(-1, N_OUT)
         unit_ns = np.asarray(unit_ns, np.int64)
         unit_off = np.cumsum(unit_ns) - unit_ns
-        rows = np.flatnonzero(self.eng_unit_id >= 0)
-        k = self.eng_out_n[rows].astype(np.int64)
-        dst0 = unit_off[self.eng_unit_id[rows]] + self.eng_out_pos[rows]
+        plan = self.plan
+        if plan.packed:
+            rows = self._eng_of_plan[plan.seg_row]
+            k = plan.seg_len.astype(np.int64)
+            dst0 = unit_off[plan.seg_unit] + plan.seg_pos
+            src0 = plan.seg_off.astype(np.int64)
+        else:
+            rows = np.flatnonzero(self.eng_unit_id >= 0)
+            k = self.eng_out_n[rows].astype(np.int64)
+            dst0 = unit_off[self.eng_unit_id[rows]] + self.eng_out_pos[rows]
+            src0 = np.zeros(rows.shape[0], np.int64)
         first = np.cumsum(k) - k
         j = np.arange(int(k.sum()), dtype=np.int64) - np.repeat(first, k)
         flat = np.zeros(int(unit_ns.sum()), np.uint32)
-        flat[np.repeat(dst0, k) + j] = host[np.repeat(rows, k), j]
+        flat[np.repeat(dst0, k) + j] = host[np.repeat(rows, k),
+                                            np.repeat(src0, k) + j]
         return np.split(flat, unit_off[1:])[:num_units]

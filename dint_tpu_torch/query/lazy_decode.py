@@ -1,8 +1,7 @@
 """Skip-aware lazy block decode for the query path (host copy).
 
-The port's copy of ``dint_tpu/query/lazy_decode.py`` without
-``ZooBlockCache`` (it waits for the block-codec index families,
-ROADMAP.md 'Modules still to port').  Numpy only, no device step.
+The port's copy of ``dint_tpu/query/lazy_decode.py``.  Numpy only, no
+device step.
 
 * The batch parser (``_tokens``, ``decode_unit_fast``,
   ``decode_units_fast_batch``, ``_decode_group``).
@@ -14,6 +13,9 @@ ROADMAP.md 'Modules still to port').  Numpy only, no device step.
 * ``BlockCache``: per-(term, block) memo of decoded docids / freqs with
   decode counters (``docs_blocks_decoded``, ``freqs_blocks_decoded``,
   ``postings_scored``), which make pruning measurable.
+* ``ZooBlockCache``: the same protocol over the block-codec indexes
+  (``index/block_index.py``), so the cursors, WAND and maxscore run
+  unchanged over every ``block_<codec>`` kind.
 * ``Cursor``: the reference's document_enumerator: docid()/freq()/
   next()/next_geq() with block-max skipping (``next_geq`` binary-
   searches the list's block_max range, then the decoded block).
@@ -356,6 +358,54 @@ class BlockCache:
         freqs = (vals.astype(np.int64) + 1).astype(np.uint32)
         self._freqs[b] = freqs
         return freqs
+
+
+class ZooBlockCache:
+    """BlockCache-compatible lazy decoder for the block-codec indexes
+    (index/block_index.py — same SoA geometry, zoo codecs per block).
+    Lets Cursor / WAND / maxscore / lazy AND run unchanged over all 11
+    block index types."""
+
+    def __init__(self, index):
+        self.index = index
+        index.ensure_docs_end()
+        self._docs: Dict[int, np.ndarray] = {}
+        self._freqs: Dict[int, np.ndarray] = {}
+        self.docs_blocks_decoded = 0
+        self.freqs_blocks_decoded = 0
+        self.postings_scored = 0
+
+    def reset_counters(self) -> None:
+        self.docs_blocks_decoded = 0
+        self.freqs_blocks_decoded = 0
+        self.postings_scored = 0
+
+    def docs_block(self, term: int, b: int) -> np.ndarray:
+        got = self._docs.get(b)
+        if got is None:
+            self.docs_blocks_decoded += 1
+            got = self.index.block_docs(b, term)
+            self._docs[b] = got
+        return got
+
+    def freqs_block(self, term: int, b: int) -> np.ndarray:
+        got = self._freqs.get(b)
+        if got is None:
+            self.freqs_blocks_decoded += 1
+            got = self.index.block_freqs(b, term)
+            self._freqs[b] = got
+        return got
+
+    def docs_blocks_batch(self, pairs) -> None:
+        for t, b in pairs:
+            self.docs_block(t, b)
+
+    def freqs_blocks_batch(self, pairs) -> None:
+        for t, b in pairs:
+            self.freqs_block(t, b)
+
+    def make_cursor(self, term: int) -> "Cursor":
+        return Cursor(self, int(term))
 
 
 class Cursor:

@@ -1,5 +1,5 @@
-"""The ladder half of the native host library (ctypes over
-native/query_host.cpp).
+"""The native host library (ctypes over native/query_host.cpp): the
+ladder image build and the cursor query engine.
 
 The ladder serving image (``kernels/unpack_device.py``) is built on the
 host at load time: DINT units decode once, natively, and the value
@@ -17,19 +17,53 @@ This module binds the three native entries that do it:
 read-only into the port's build directory at first use.  A failed build
 raises with the compiler's message: the native route is the main path,
 and the numpy route (``unpack_device.ladder_plan_from_values(...,
-native=False)``) is only the oracle it is tested against.  The cursor
-query engine of the same library is not bound here.
+native=False)``) is only the oracle it is tested against.
+
+The same library holds the host serving path, ``NativeQueryEngine``:
+the reference serves queries from C++ enumerators (queries.hpp:34-573);
+this engine walks a DintIndex or BlockIndex structure-of-arrays
+zero-copy (list_n / block_ptr / block_max / docs_end / block_end /
+arena + the dictionary DecodeView tables) with native block decode and
+the query algorithms of ``OPS``.  The Python engines (query/boolean.py,
+query/ranked.py) remain the oracles it is tested against.  An EF-family
+index serves through its u32 block view (``query/block_view.py``).
+
+    eng = NativeQueryEngine(index, wdata)      # wdata optional for and/or
+    times_us, counts, scores = eng.run("wand", queries, runs=10, k=10)
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..utils import nativebuild
 
 LADDER_WIDTHS = (1, 2, 3, 4, 5, 6, 8, 10, 16, 32)
+
+OPS = {
+    "and": 0,
+    "or": 1,
+    "and_freq": 2,
+    "or_freq": 3,
+    "wand": 4,
+    "maxscore": 5,
+    "ranked_and": 6,
+    "ranked_or": 7,
+    # pair_wise_intersect semantics: AND with results materialized
+    # into a num_docs buffer (src/pair_wise_intersect.cpp:28-59)
+    "and_collect": 8,
+}
+
+# block-codec kind -> qh_create mode (16 + native codec id; ids 0-7 =
+# zoo_many order in native/zoo_decode.cpp, 8 = qmx, 9 = u32)
+BLOCK_CODEC_MODES = {
+    "vbyte": 16, "maskedvbyte": 17, "streamvbyte": 18, "varintgb": 19,
+    "varintg8iu": 20, "simple16": 21, "optpfor": 22,
+    "interpolative": 23, "qmx": 24, "u32": 25,
+}
 
 _SO = "libdintqh.so"
 _lib = None
@@ -45,7 +79,7 @@ def get_lib():
     zoo_src = nativebuild.source_path("zoo_decode.cpp")
     if src is None or zoo_src is None:
         raise RuntimeError("native/query_host.cpp and native/zoo_decode.cpp "
-                           "are required for the ladder image build")
+                           "are required for the native host library")
     # -ftls-model=initial-exec is the reference's build of this library;
     # where the loader is out of static TLS space the default model is
     # the fallback
@@ -67,7 +101,29 @@ def get_lib():
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    f64p = ctypes.POINTER(ctypes.c_double)
     handle_p = ctypes.POINTER(ctypes.c_void_p)
+    lib.qh_create.restype = ctypes.c_void_p
+    lib.qh_create.argtypes = [
+        ctypes.c_int, ctypes.c_uint64, ctypes.c_uint64,
+        u32p, u64p, u32p, u64p, u64p, u8p,
+        u32p, u32p, i32p, ctypes.c_int,
+        u32p, u32p, i32p, ctypes.c_int,
+        f32p, f32p,
+    ]
+    lib.qh_destroy.argtypes = [ctypes.c_void_p]
+    lib.qh_run.restype = ctypes.c_int
+    lib.qh_run.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        u32p, u64p, ctypes.c_uint64, f64p, u64p, f32p,
+    ]
+    lib.qh_dict_copy.restype = ctypes.c_double
+    lib.qh_dict_copy.argtypes = [
+        u32p, u32p, i32p, ctypes.c_int, u32p, ctypes.c_uint64,
+        ctypes.c_uint32,
+    ]
     units = [u32p, u32p, i32p, ctypes.c_int,
              u8p, i64p, i64p, i32p, i32p, i32p, ctypes.c_int64]
     lib.qh_decode_units_flat.restype = ctypes.c_int64
@@ -94,6 +150,16 @@ def get_lib():
     lib.qh_ladder_free.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here (the build error of a
+    False stays in ``nativebuild.errors``)."""
+    try:
+        get_lib()
+    except RuntimeError:
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -228,3 +294,160 @@ def ladder_from_values(flat, vpb: int = 256, base_relative: bool = False):
     if not base_relative:
         classes = [c + (None,) for c in classes]
     return classes, tail
+
+
+def dict_copy_ns(view, indexes: np.ndarray, runs: int = 10) -> float:
+    """Native random-copy microbenchmark over a dictionary DecodeView
+    (the src/dict_perf_test.cpp:43-63 loop: one 16-word memcpy + length
+    read per index, `runs` passes).  Returns avg ns per copy."""
+    lib = get_lib()
+    table = np.ascontiguousarray(view.table, dtype=np.uint32)
+    offs = np.ascontiguousarray(view.offsets, dtype=np.uint32)
+    lens = np.ascontiguousarray(view.lengths, dtype=np.int32)
+    idx = np.ascontiguousarray(indexes, dtype=np.uint32)
+    contexts = int(view.offsets.shape[0]) if view.offsets.ndim == 2 else 1
+    return float(lib.qh_dict_copy(
+        _ptr(table, ctypes.c_uint32),
+        _ptr(offs, ctypes.c_uint32),
+        _ptr(lens, ctypes.c_int32),
+        contexts,
+        _ptr(idx, ctypes.c_uint32),
+        idx.shape[0],
+        runs,
+    ))
+
+
+class _NullView:
+    """Stand-in dictionary view for dictionary-less (block-codec)
+    indexes: 1-context zero tables the native side never reads."""
+
+    def __init__(self):
+        self.table = np.zeros(1, np.uint32)
+        self.offsets = np.zeros((1, 1), np.uint32)
+        self.lengths = np.zeros((1, 1), np.int32)
+
+
+class NativeQueryEngine:
+    """Holds a native context over a DintIndex or BlockIndex
+    (+ optional WandData)."""
+
+    def __init__(self, index, wdata=None):
+        lib = get_lib()
+        self._lib = lib
+        self.index = index
+        self.num_docs = int(index.num_docs)
+        self.num_lists = int(index.num_lists)
+        if hasattr(index, "docs_dict"):
+            mode = 1 if index.kind == "multi" else 0
+            dv = index.docs_dict.decode_view()
+            fv = index.freqs_dict.decode_view()
+        else:
+            mode = BLOCK_CODEC_MODES[index.codec]
+            dv = _NullView()
+            fv = _NullView()
+        # keep every array referenced: the context borrows them zero-copy
+        self._keep = keep = []
+
+        def prep(a, dtype):
+            a = np.ascontiguousarray(a, dtype=dtype)
+            keep.append(a)
+            return a
+
+        list_n = prep(index.list_n, np.uint32)
+        block_ptr = prep(index.block_ptr, np.uint64)
+        block_max = prep(index.block_max, np.uint32)
+        index.ensure_docs_end()
+        docs_end = prep(index.docs_end, np.uint64)
+        block_end = prep(index.block_end, np.uint64)
+        # +16 zero bytes of slack: the native interpolative BitReader
+        # does unaligned 64-bit loads that may read past a block's last
+        # payload byte (never past the pad)
+        arena = np.concatenate(
+            [np.ascontiguousarray(index.arena, dtype=np.uint8),
+             np.zeros(16, np.uint8)]
+        )
+        keep.append(arena)
+        d_table = prep(dv.table, np.uint32)
+        d_off = prep(dv.offsets, np.uint32)
+        d_len = prep(dv.lengths, np.int32)
+        f_table = prep(fv.table, np.uint32)
+        f_off = prep(fv.offsets, np.uint32)
+        f_len = prep(fv.lengths, np.int32)
+        if wdata is not None:
+            norm = prep(wdata.norm_lens, np.float32)
+            maxw = prep(wdata.max_term_weight, np.float32)
+        else:
+            norm = prep(np.zeros(self.num_docs, np.float32), np.float32)
+            maxw = prep(np.zeros(self.num_lists, np.float32), np.float32)
+        assert norm.shape[0] == self.num_docs
+        assert maxw.shape[0] == self.num_lists
+
+        self._ctx = lib.qh_create(
+            mode,
+            self.num_lists, self.num_docs,
+            _ptr(list_n, ctypes.c_uint32),
+            _ptr(block_ptr, ctypes.c_uint64),
+            _ptr(block_max, ctypes.c_uint32),
+            _ptr(docs_end, ctypes.c_uint64),
+            _ptr(block_end, ctypes.c_uint64),
+            _ptr(arena, ctypes.c_uint8),
+            _ptr(d_table, ctypes.c_uint32),
+            _ptr(d_off, ctypes.c_uint32),
+            _ptr(d_len, ctypes.c_int32),
+            int(dv.offsets.shape[0]),
+            _ptr(f_table, ctypes.c_uint32),
+            _ptr(f_off, ctypes.c_uint32),
+            _ptr(f_len, ctypes.c_int32),
+            int(fv.offsets.shape[0]),
+            _ptr(norm, ctypes.c_float),
+            _ptr(maxw, ctypes.c_float),
+        )
+
+    def __del__(self):
+        ctx = getattr(self, "_ctx", None)
+        if ctx:
+            self._lib.qh_destroy(ctx)
+            self._ctx = None
+
+    def run(
+        self,
+        op: str,
+        queries: Sequence[Sequence[int]],
+        runs: int = 11,
+        k: int = 10,
+    ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+        """Run the whole query batch ``runs`` times (first run untimed,
+        src/queries.cpp:29-32).  Returns (times_us of shape
+        (runs-1, Q), result counts (Q,), top-k scores (Q, k) descending
+        padded with -1 for ranked ops else None)."""
+        assert runs >= 2, "first run is untimed warmup"
+        assert 0 < k <= 256
+        opc = OPS[op]
+        Q = len(queries)
+        lens = np.fromiter((len(q) for q in queries), np.int64, Q)
+        qoffs = np.zeros(Q + 1, dtype=np.uint64)
+        np.cumsum(lens, out=qoffs[1:].view(np.int64))
+        qterms = np.fromiter(
+            (int(t) for q in queries for t in q), np.uint32, int(lens.sum())
+        )
+        if qterms.shape[0]:
+            assert int(qterms.max()) < self.num_lists
+        out_us = np.zeros((runs - 1) * Q, dtype=np.float64)
+        out_cnt = np.zeros(Q, dtype=np.uint64)
+        ranked = opc >= 4
+        out_scores = (
+            np.full(Q * k, -1.0, dtype=np.float32) if ranked else None
+        )
+        rc = self._lib.qh_run(
+            self._ctx, opc, k, runs,
+            _ptr(qterms, ctypes.c_uint32),
+            _ptr(qoffs, ctypes.c_uint64),
+            Q,
+            _ptr(out_us, ctypes.c_double),
+            _ptr(out_cnt, ctypes.c_uint64),
+            _ptr(out_scores, ctypes.c_float) if ranked else None,
+        )
+        if rc != 0:
+            raise RuntimeError(f"qh_run failed ({rc})")
+        scores = out_scores.reshape(Q, k) if ranked else None
+        return out_us.reshape(runs - 1, Q), out_cnt, scores

@@ -26,6 +26,22 @@ DINT_KINDS = {
     "multi_overlapped_dint": ("multi", "overlap"),
 }
 
+EF_KINDS = ("ef", "single", "uniform", "opt")
+
+# block_freq_index family (index_types.hpp:39-49): block_<codec>
+BLOCK_KINDS = tuple(
+    "block_" + c
+    for c in (
+        "optpfor", "varintg8iu", "interpolative", "qmx", "mixed", "u32",
+        "vbyte", "simple16", "varintgb", "maskedvbyte", "streamvbyte",
+    )
+)
+
+
+def block_codec_of(index_type: str) -> str:
+    assert index_type.startswith("block_")
+    return index_type[len("block_"):]
+
 # vroom whole-list codec types (vroom_env/codecs.hpp CODECS :511-513 + pef)
 VROOM_ZOO = (
     "u32", "vbyte", "streamvbyte", "maskedvbyte", "varintgb", "qmx",

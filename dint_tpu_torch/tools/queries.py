@@ -2,17 +2,26 @@
 
     python -m dint_tpu_torch.tools.queries <index_type>
         <query_type(colon-separated)> <index_file> [wand_data_file]
-        --queries FILE [--runs R] [--k K] [--engine device|host]
-        [--device cuda|cpu]
+        --queries FILE [--runs R] [--k K] [--engine device|host|native]
+        [--device cuda|cpu] [--device-ef]
 
-``--engine device`` (the default) runs whole batches on ``--device``:
+<index_type> is any kind ``create_freq_index`` builds: the DINT family,
+the EF family {ef, single, uniform, opt} and the block_<codec> kinds.
+
+``--engine device`` (the default) runs whole batches on ``--device``.
+For an index with 256-posting blocks (DINT and block_<codec>),
 ``ranked_or``, ``wand`` and ``maxscore`` go through the fused
 device-resident store (``query/device_serve.py``: decode once at load,
 K4 block copy + sort-merge top-k per pass); ``wand`` and ``maxscore``
 first drop, with the Block-Max survival pass of ``query/bmw_device.py``,
 the blocks that cannot reach a query's top-k (they need the wand data's
-block-max sidecar; the three ops return the same top-k).  ``and`` and
-``or`` count through the sort-merge engine of ``query/device_batch.py``.
+block-max sidecar and a lazy cache that decodes blocks in batches; the
+three ops return the same top-k).  An EF-family index has no blocks:
+its ranked ops take the row path of ``query/device_batch.py``,
+unpruned, as in the reference (``--device-ef`` decodes a plain-EF
+index's docid lists on ``--device``, ``codecs/ef_device.py``).  ``and``
+and ``or`` count through the sort-merge engine of
+``query/device_batch.py`` for every kind.
 
 ``--engine host`` runs one query at a time in numpy (``run_op``): and,
 and_freq, or, or_freq, wand, maxscore, ranked_and over the skip-aware
@@ -21,9 +30,12 @@ the blocks its skips land in; ranked_or over the pre-decoded lists.
 
 Reports avg/q50/q90/q95 microseconds per query over R timed passes
 after one untimed warm-up pass, one JSON line per op
-(src/queries.cpp:25-61), with the device it ran on.  ``--engine native``
-(the C++ cursor engine) is not ported yet: ROADMAP.md 'Modules still to
-port'.
+(src/queries.cpp:25-61), with the device it ran on.
+
+``--engine native`` runs the C++ cursor engine on the host
+(``query/native_host.NativeQueryEngine``, every op of its ``OPS``) over
+a DINT or block index, and over an EF-family index through the u32
+block view that ``query/block_view.from_ef_index`` transcodes at load.
 """
 
 from __future__ import annotations
@@ -40,10 +52,8 @@ from ..query import bmw, bmw_device, boolean, device_batch, device_serve, ranked
 from ..query.term_decode import TermDecoder
 from . import common
 
-NOT_PORTED_ENGINES = {
-    "native": "ROADMAP.md 'Modules still to port' item 4 (the native C++ "
-              "cursor engine, query/native_host.py)",
-}
+ALL_TYPES = (sorted(common.DINT_KINDS) + list(common.EF_KINDS)
+             + list(common.BLOCK_KINDS))
 RANKED_DEVICE_OPS = ("wand", "maxscore", "ranked_or")
 HOST_OPS = ("and", "and_freq", "or", "or_freq", "wand", "maxscore",
             "ranked_and", "ranked_or")
@@ -73,6 +83,55 @@ def _timed_passes(one_pass, runs: int, Q: int):
     return t_us, out
 
 
+def _batch_cache(decoder) -> bool:
+    """The reference's gate for Block-Max pruning: the decoder's lazy
+    cache decodes blocks in batches (DINT and block_<codec> indexes; the
+    EF family's enumerator cache does not)."""
+    return hasattr(getattr(decoder, "lazy_cache", None),
+                   "docs_blocks_batch")
+
+
+def load_index(index_type: str, path: str, device="cuda",
+               device_ef: bool = False):
+    """(index, decoder) of a saved index of any kind; the decoder serves
+    on ``device`` (``device_ef``: a plain-EF index decodes its docid
+    lists there too)."""
+    if index_type in common.BLOCK_KINDS:
+        from ..index.block_index import BlockIndex, BlockTermDecoder
+
+        index = BlockIndex.load(path)
+        return index, BlockTermDecoder(index, device=device)
+    if index_type in common.EF_KINDS:
+        from ..index.freq_index import EFTermDecoder, FreqIndexEF
+
+        index = FreqIndexEF.load(path)
+        return index, EFTermDecoder(index, device=device,
+                                    device_ef=device_ef)
+    index = DintIndex.load(path)
+    return index, TermDecoder(index, device=device)
+
+
+def native_engine(index_type: str, index, decoder, wdata):
+    """The C++ cursor engine over ``index`` (an EF-family index through
+    its u32 block view, transcoded at load by ``decoder``)."""
+    from ..query.native_host import NativeQueryEngine
+
+    if index_type in common.EF_KINDS:
+        from ..query import block_view
+
+        view = block_view.from_ef_index(index, decoder)
+        common.log(f"EF block view transcode: {view.cold_start_s:.2f}s")
+        return NativeQueryEngine(view, wdata)
+    return NativeQueryEngine(index, wdata)
+
+
+def run_op_native(engine, queries_list, op, runs, k):
+    """One op through the native engine: ``runs`` timed passes after
+    one untimed one; per-query microseconds and the result count."""
+    t_us, cnt, _ = engine.run(op, queries_list, runs=runs + 1, k=k)
+    return percentiles(t_us.ravel()), {"total_results": str(int(cnt.sum()))}
+
+
 def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
                         store=None):
     """Fused device-resident serving: postings decode ONCE into the
@@ -92,7 +151,8 @@ def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
     common.log(f"[fused] store: {store.store_bytes >> 20} MiB, "
                f"built in {store_s:.1f} s")
     prune = (op in ("wand", "maxscore")
-             and getattr(wdata, "block_maxw", None) is not None)
+             and getattr(wdata, "block_maxw", None) is not None
+             and _batch_cache(decoder))
     t1 = time.perf_counter()
     buckets, singles, stats = store._batch_metadata(
         queries_list, k, prune=prune,
@@ -134,15 +194,18 @@ def run_op_device_fused(index, decoder, wdata, queries_list, op, runs, k,
 def run_op_device(index, decoder, wdata, queries_list, op, runs, k,
                   store=None, fused=True, prune_engine="device"):
     """Whole-batch device execution of one op on the decoder's device.
-    Ranked ops (wand, maxscore, ranked_or) go through the fused store;
-    with ``fused=False`` they take the row-upload path: per-query
+    Ranked ops (wand, maxscore, ranked_or) go through the fused store
+    where the index has 256-posting blocks (``list_blocks``); with
+    ``fused=False``, or over an EF-family index, they take the
+    row-upload path: per-query
     (docid, score) rows are assembled on the host, for wand and maxscore
-    from the blocks that survive Block-Max pruning (survival test on the
+    from the blocks that survive Block-Max pruning where the decoder's
+    lazy cache decodes blocks in batches (survival test on the
     device, or with ``prune_engine="host"`` in numpy), padded and
     uploaded once, and every timed pass sort-merges each bucket.  and/or
     count through the same sort-merge (rows padded and uploaded once;
     every timed pass runs each bucket and fetches its counts)."""
-    if op in RANKED_DEVICE_OPS and fused:
+    if op in RANKED_DEVICE_OPS and fused and hasattr(index, "list_blocks"):
         return run_op_device_fused(index, decoder, wdata, queries_list, op,
                                    runs, k, store)
     Q = len(queries_list)
@@ -153,7 +216,8 @@ def run_op_device(index, decoder, wdata, queries_list, op, runs, k,
         srows = None
     elif op in RANKED_DEVICE_OPS:
         if (op != "ranked_or"
-                and getattr(wdata, "block_maxw", None) is not None):
+                and getattr(wdata, "block_maxw", None) is not None
+                and _batch_cache(decoder)):
             # the decoder's memoizing cache is reused: row construction
             # is untimed, and a fresh cache would decode every surviving
             # block again
@@ -223,17 +287,22 @@ def run_op(index, decoder, wdata, queries_list, op, runs, k):
     (src/queries.cpp:15-61).  ranked_or is exhaustive by definition and
     keeps the pre-decoded warm cache (its decode, on the decoder's
     device, is the untimed warm-up, like the reference's index warm,
-    queries.cpp:74-83).  The lazy ops leave the sums of their block and
-    posting counters over the timed passes in ``decoder._lazy_totals``."""
+    queries.cpp:74-83).  An EF-family index's cursor cache has no block
+    geometry (no ``docs_blocks_batch``), so there only wand and maxscore
+    run lazily; and/or/_freq and ranked_and take the pre-decoded lists
+    too, as in the reference.  The lazy ops leave the sums
+    of their block and posting counters over the timed passes in
+    ``decoder._lazy_totals``."""
     if op not in HOST_OPS:
         raise ValueError(f"unsupported query type {op}")
-    lazy = op != "ranked_or"
-    if lazy:
-        cache_factory = type(decoder.lazy_cache)
-    else:
+    cache_factory = type(decoder.lazy_cache)
+    lazy = op != "ranked_or" and (op in ("wand", "maxscore")
+                                  or _batch_cache(decoder))
+    if not lazy:
         all_terms = sorted({int(t) for q in queries_list for t in q})
         decoder.decode_docids(all_terms)
-        decoder.decode_freqs(all_terms)
+        if op not in ("and", "or"):
+            decoder.decode_freqs(all_terms)
 
     def one_query_lazy(q):
         cache = cache_factory(index)  # fresh: decode is timed per query
@@ -264,7 +333,14 @@ def run_op(index, decoder, wdata, queries_list, op, runs, k):
 
     def one_query_warm(q):
         t0 = time.perf_counter()
-        ranked.ranked_or(index, decoder, wdata, q, k)
+        if op == "ranked_and":
+            ranked.ranked_and(index, decoder, wdata, q, k)
+        elif op == "ranked_or":
+            ranked.ranked_or(index, decoder, wdata, q, k)
+        elif op in ("and", "and_freq"):
+            boolean.and_query(decoder._doc_cache, boolean.dedup_terms(q))
+        else:
+            boolean.or_query(decoder._doc_cache, boolean.dedup_terms(q))
         return (time.perf_counter() - t0) * 1e6
 
     one_query = one_query_lazy if lazy else one_query_warm
@@ -287,7 +363,7 @@ def run_op(index, decoder, wdata, queries_list, op, runs, k):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("index_type", choices=sorted(common.DINT_KINDS))
+    ap.add_argument("index_type", choices=ALL_TYPES)
     ap.add_argument("query_types")  # colon-separated
     ap.add_argument("index_file")
     ap.add_argument("wand_data_file", nargs="?")
@@ -298,18 +374,18 @@ def main(argv=None):
         "--engine", choices=["host", "native", "device"], default="device",
         help="device: whole-batch sort-merge passes on --device "
         "(query/device_serve.py, query/device_batch.py); host: per-query "
-        "numpy engines over the lazy block cache; native: not ported",
+        "numpy engines over the lazy block cache; native: the C++ cursor "
+        "engine on the host (query/native_host.py)",
     )
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain PyTorch path)")
+    ap.add_argument("--device-ef", action="store_true",
+                    help="ef kind: decode docid lists on --device "
+                    "(codecs/ef_device.py)")
     args = ap.parse_args(argv)
-    if args.engine in NOT_PORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine {args.engine!r} is not ported yet: "
-            f"{NOT_PORTED_ENGINES[args.engine]}")
     dev = resolve_device(args.device)
-    index = DintIndex.load(args.index_file)
-    decoder = TermDecoder(index, device=dev)
+    index, decoder = load_index(args.index_type, args.index_file, dev,
+                                args.device_ef)
     wdata = (
         ranked.WandData.load(args.wand_data_file)
         if args.wand_data_file
@@ -320,7 +396,13 @@ def main(argv=None):
     queries_list = [
         q for q in queries_list if all(0 <= t < index.num_lists for t in q)
     ]
-    common.log(f"running {len(queries_list)} queries on {device_name(dev)}")
+    native_eng = None
+    if args.engine == "native":
+        native_eng = native_engine(args.index_type, index, decoder, wdata)
+        where = "the host (native engine)"
+    else:
+        where = device_name(dev)
+    common.log(f"running {len(queries_list)} queries on {where}")
     records = []
     for op in args.query_types.split(":"):
         extra = {}
@@ -329,6 +411,9 @@ def main(argv=None):
                 index, decoder, wdata, queries_list, op, args.runs, args.k
             )
             extra = {"batch_shape": "x".join(map(str, shape)), **extra}
+        elif args.engine == "native":
+            stats, extra = run_op_native(native_eng, queries_list, op,
+                                         args.runs, args.k)
         else:
             stats = run_op(
                 index, decoder, wdata, queries_list, op, args.runs, args.k
@@ -344,7 +429,7 @@ def main(argv=None):
             "runs": str(args.runs),
             **{k: f"{v:.2f}" for k, v in stats.items()},
             **extra,
-            "device": device_name(dev),
+            "device": "host" if args.engine == "native" else device_name(dev),
         }
         common.stats_line(rec)
         records.append(rec)

@@ -407,3 +407,155 @@ def test_engine_with_empty_classes_matches_reference(images, keep):
     np.testing.assert_array_equal(_u32(teng.decode_all(0x80000001)),
                                   np.asarray(jeng.decode_all()))
     assert int(teng.decode_chain(3)) == int(np.asarray(jeng.decode_chain(3)))
+
+
+# ---------------------------------------------------------------------------
+# LocalPlan: the Python walk, packing, plan files and LocalDecodeEngine
+# ---------------------------------------------------------------------------
+
+PLAN_FIELDS = ("tokens", "meta", "table", "out_n", "unit_id", "out_pos",
+               "seg_row", "seg_unit", "seg_pos", "seg_off", "seg_len")
+
+
+@pytest.fixture(scope="module")
+def layouts(tmp_path_factory):
+    """{type: (planner arguments with the reference's view, the same with
+    the port's view, unit ns, unit gaps)} of the mixed collection."""
+    from dint_tpu_torch.tools import decode as t_decode
+
+    root = str(tmp_path_factory.mktemp("torch_local_plans"))
+    base = os.path.join(root, "mixed")
+    write_mixed_collection(base)
+    out = {}
+    for t in ("single_rect_dint", "multi_packed_dint"):
+        stream, dict_file = encode_both(os.path.join(root, t), base, t)["jax"]
+        arena, meta = j_stream.load_stream(stream)
+        lay = j_decode.units_from_meta(arena, meta, t.startswith("multi"))
+        geo = (arena, lay.starts, lay.byte_lens, lay.n, lay.ctx, lay.b_bits)
+        jview = j_decode.load_dictionary(
+            t, dict_file).decode_view()
+        tview = t_decode.load_dictionary(t, dict_file).decode_view()
+        jplan = j_dl.plan_stream(*geo, jview, prefer_native=False)
+        eng = j_dl.LocalDecodeEngine(jplan)
+        units = eng.gather_units(eng.decode_all(), len(lay.n), lay.n)
+        out[t] = (geo + (jview,), geo + (tview,), lay.n, units)
+    return out
+
+
+def assert_plans_equal(a, b):
+    assert a.packed == b.packed and a.rows == b.rows
+    assert a.plan_bytes() == b.plan_bytes()
+    for f in PLAN_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None or y is None:
+            assert x is None and y is None, f
+            continue
+        assert x.dtype == y.dtype, f
+        np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("type_name", ["single_rect_dint",
+                                       "multi_packed_dint"])
+def test_plan_stream_py_matches_reference_and_native(layouts, type_name):
+    jargs, targs, _, _ = layouts[type_name]
+    tpy = t_dl._plan_stream_py(*targs)
+    assert_plans_equal(tpy, j_dl._plan_stream_py(*jargs))
+    assert_plans_equal(tpy, t_dl.plan_stream(*targs))
+    assert not tpy.packed
+
+
+@pytest.mark.parametrize("type_name", ["single_rect_dint",
+                                       "multi_packed_dint"])
+def test_pack_plan_units_matches_reference(layouts, type_name):
+    jargs, targs, _, _ = layouts[type_name]
+    tp = t_dl.plan_stream(*targs, pack_units=True)
+    jp = j_dl.plan_stream(*jargs, pack_units=True)
+    assert tp.packed and tp.rows < t_dl.plan_stream(*targs).rows
+    assert_plans_equal(tp, jp)
+    assert_plans_equal(
+        tp, t_dl.plan_stream(*targs, prefer_native=False, pack_units=True))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["per_unit", "packed"])
+def test_plan_files_cross_load(layouts, tmp_path, packed):
+    jargs, targs, _, _ = layouts["multi_packed_dint"]
+    tp = t_dl.plan_stream(*targs, pack_units=packed)
+    jp = j_dl.plan_stream(*jargs, pack_units=packed)
+    tpath, jpath = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    t_dl.save_plan(tp, tpath)
+    j_dl.save_plan(jp, jpath)
+    assert_plans_equal(j_dl.load_plan(tpath), jp)
+    assert_plans_equal(t_dl.load_plan(jpath), tp)
+    z = dict(np.load(tpath))
+    z["version"] = z["version"] + 1
+    np.savez(tpath, **z)
+    assert t_dl.load_plan(tpath) is None
+    assert t_dl.load_plan(str(tmp_path / "missing.npz")) is None
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["per_unit", "packed"])
+@pytest.mark.parametrize("type_name", ["single_rect_dint",
+                                       "multi_packed_dint"])
+def test_local_engine_decode_all_matches_reference(layouts, monkeypatch,
+                                                   type_name, packed):
+    """Both engines lay rows out class-major (the reference's split path,
+    in interpret mode) and give back every unit."""
+    jargs, targs, ns, units = layouts[type_name]
+    monkeypatch.setattr(j_dl, "FORCE_SPLIT_INTERPRET", True)
+    jp = j_dl.plan_stream(*jargs, pack_units=packed)
+    jeng = j_dl.LocalDecodeEngine(jp)
+    teng = t_dl.LocalDecodeEngine(t_dl.plan_stream(*targs, pack_units=packed),
+                                  device="cpu")
+    jout = np.asarray(jeng.decode_all())
+    tout = teng.decode_all()
+    np.testing.assert_array_equal(_u32(tout), jout)
+    got = teng.gather_units(tout, len(ns), ns)
+    for a, b, c in zip(got, jeng.gather_units(jout, len(ns), ns), units):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    if packed:
+        with pytest.raises(AssertionError, match="per-unit rows"):
+            teng.row_carry()
+
+
+@pytest.mark.parametrize("sliced", [False, True], ids=["whole", "sliced"])
+@pytest.mark.parametrize("packed", [False, True], ids=["per_unit", "packed"])
+def test_local_decode_chain_matches_reference(layouts, monkeypatch, packed,
+                                              sliced):
+    """The chained, salted decode of a LocalPlan: the final salt equals
+    the reference engine's, with the whole-output sum (the reference's
+    portable chain) and with the slice sum of large plans (its split
+    chain, interpret mode)."""
+    jargs, targs, _, _ = layouts["multi_packed_dint"]
+    if sliced:
+        monkeypatch.setattr(j_dl, "FORCE_SPLIT_INTERPRET", True)
+        monkeypatch.setattr(j_dl, "CHAIN_SUMS_MIN_OUT_BYTES", 0)
+        monkeypatch.setattr(t_dl, "CHAIN_SUMS_MIN_OUT_BYTES", 0)
+    j_dl._pallas_split_fns.cache_clear()
+    try:
+        jeng = j_dl.LocalDecodeEngine(
+            j_dl.plan_stream(*jargs, pack_units=packed))
+        teng = t_dl.LocalDecodeEngine(
+            t_dl.plan_stream(*targs, pack_units=packed), device="cpu")
+        for runs in (1, 3):
+            want = int(np.asarray(jeng.decode_chain(runs)))
+            got = teng.decode_chain(runs)
+            assert got.dtype == torch.int64 and got.dim() == 0
+            assert int(got) == want, (runs, int(got), want)
+    finally:
+        j_dl._pallas_split_fns.cache_clear()
+
+
+def test_single_class_chain_matches_reference():
+    """The single-class chain (every row through K1) against the
+    reference's ``_pallas_decode_fns`` chain in interpret mode."""
+    vidx, _, tab32, n = edge_inputs(3)
+    _, chain = j_dl._pallas_decode_fns(ROWS, RT, True)
+    args = (torch.from_numpy(vidx), torch.from_numpy(tab32.view(np.int32)),
+            torch.from_numpy(n))
+    for runs in (1, 4):
+        want = int(np.asarray(chain(jnp.asarray(vidx.view(np.int8)),
+                                    jnp.asarray(tab32.view(np.int32)),
+                                    jnp.asarray(n[:, None]), runs=runs)))
+        got = t_dl.single_class_chain(*args, runs)
+        assert got.dim() == 0 and int(got) == want, runs

@@ -499,20 +499,24 @@ def test_queries_cli_device_engine_on_cpu(built, tmp_path, capsys):
 
 @pytest.mark.parametrize("args,match", [
     (["--engine", "host"], None),
-    (["--engine", "native"], "item 4"),
+    (["--engine", "native"], None),
 ], ids=["args0-item 1", "args1-item 5"])
 def test_queries_cli_unported_engines_raise(built, tmp_path, args, match):
-    """The native engine still names its ROADMAP item; the host engine,
-    ported since, answers."""
+    """The host and native engines, ported since, both answer; the native
+    engine's ranked_or returns min(k, matching docs) a query, as the host
+    oracle does."""
     idx, wand, qfile = _cli_files(built, tmp_path)
     argv = ["single_packed_dint", "ranked_or", idx, wand, "--queries", qfile,
             "--device", "cpu", "--runs", "1", *args]
-    if match is None:
-        (rec,) = t_queries.main(argv)
-        assert rec["engine"] == "host" and float(rec["avg"]) > 0
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        t_queries.main(argv)
+    (rec,) = t_queries.main(argv)
+    assert rec["engine"] == args[1] and float(rec["avg"]) > 0
+    if args[1] == "native":
+        ti, _, wd, queries, _ = built
+        tdec = TermDecoder(ti, device="cpu")
+        want = sum(t_ranked.ranked_or(ti, tdec, wd, q, K).size
+                   for q in queries)
+        assert rec["total_results"] == str(want)
+        assert rec["device"] == "host"
 
 
 @pytest.mark.parametrize("op", ["wand", "maxscore"])

@@ -223,7 +223,30 @@ def test_queries_cli_host_engine_every_op(built, capsys):
 
 
 def test_queries_cli_native_engine_names_its_item(built):
+    """``--engine native``, ported since, answers: its counts equal the
+    host engine's and the reference's native engine's over the same
+    files."""
     idx, wand, qfile = built["files"]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_queries.main(["single_packed_dint", "and", idx, wand, "--queries",
-                        qfile, "--engine", "native", "--device", "cpu"])
+    ops = ("and", "or", "wand")
+    argv = ["single_packed_dint", ":".join(ops), idx, wand, "--queries",
+            qfile, "--runs", "1", "--device", "cpu"]
+    recs = t_queries.main(argv + ["--engine", "native"])
+    assert [r["type"] for r in recs] == list(ops)
+    from dint_tpu.query.native_host import NativeQueryEngine as JNative
+
+    jeng = JNative(built["ji"], built["jwd"])
+    ti, tdec = built["ti"], TermDecoder(built["ti"], device="cpu")
+    for r in recs:
+        assert r["engine"] == "native" and r["device"] == "host"
+        assert r["queries"] == str(len(built["queries"]))
+        _, cnt, _ = jeng.run(r["type"], built["queries"], runs=2, k=K)
+        assert r["total_results"] == str(int(cnt.sum()))
+        if r["type"] == "wand":
+            want = sum(t_ranked.ranked_or(ti, tdec, built["twd"], q, K).size
+                       for q in built["queries"])
+        else:
+            fn = t_bool.and_query if r["type"] == "and" else t_bool.or_query
+            docs = tdec.decode_docids(range(NUM_LISTS))
+            want = sum(fn(docs, t_bool.dedup_terms(q)).size
+                       for q in built["queries"])
+        assert r["total_results"] == str(want), r["type"]

@@ -310,6 +310,18 @@ def test_cli_tools_build_what_the_reference_loads(collections, indexes,
     np.testing.assert_array_equal(
         j_ranked.WandData.load(str(tmp_path / "w.npz")).block_maxw,
         w.block_maxw)
-    for kind in ("ef", "block_qmx"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            create_freq_index.main([kind, base])
+    # the other families, ported since: a block kind builds the
+    # reference's file; an EF index holds no empty list (this collection
+    # has one), and both packages refuse it alike
+    from dint_tpu.index import block_index as j_bi
+    from dint_tpu.index import freq_index as j_fi
+
+    out = str(tmp_path / "qmx.npz")
+    blk = create_freq_index.main(["block_qmx", base, out])
+    np.testing.assert_array_equal(blk.arena,
+                                  j_bi.build_block_index(base, "qmx").arena)
+    assert np.load(out)["arena"].tobytes() == blk.arena.tobytes()
+    with pytest.raises(AssertionError):
+        create_freq_index.main(["ef", base])
+    with pytest.raises(AssertionError):
+        j_fi.build_freq_index(base, "ef")

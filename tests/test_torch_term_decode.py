@@ -204,7 +204,7 @@ def test_plan_stream_raises_with_the_build_error(monkeypatch):
 
     monkeypatch.setitem(nativebuild.errors, "libdintplan.so",
                         "dint_planner.cpp:1: error: boom")
-    with pytest.raises(RuntimeError, match="boom.*item 4"):
+    with pytest.raises(RuntimeError, match="boom.*prefer_native=False"):
         t_dl.plan_stream(np.zeros(4, np.uint8), [0], [2], [1], [0], [16],
                          None)
 
