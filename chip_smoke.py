@@ -5,8 +5,10 @@ the one-hot kernel ablation, fused ranked query serving, the raw
 chain-scan engine, the eleven zoo list types, the sharded steps and
 serving over torch.distributed, the statistics merge, the multi-rank
 dry run, the EF and block index families (device EF decode, block-codec
-serving through K4), the native cursor engine and the chained decode of
-packed per-unit plans.
+serving through K4), the native cursor engine, the chained decode of
+packed per-unit plans, and the last tools (check_encoded_data,
+check_index, pair_wise_intersect, dict_perf_test) with the numpy coders
+of the batch encoder.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
 
@@ -102,9 +104,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     list; the bucket census (units clean and dirty, tiles per (W, N, b))
     and a torch.profiler trace of 2 runs (wall against device busy);
 16. zoo: the eleven ``VROOM_ZOO`` types encoded from the phase-2
-    collection (``tools.encode.encode_zoo`` with a process per core,
-    under ``.chip_smoke/zoo/``), each decoded by ``tools.decode``'s
-    device path through the ladder image at 500 chained runs and, for
+    collection (``tools.encode.encode_zoo_many``: every type's lists in
+    one pool of a process per core, under ``.chip_smoke/zoo/``), each
+    decoded by ``tools.decode``'s device path through the ladder image
+    at 500 chained runs and, for
     the eight types with one, through its wire-structure engine at 100,
     every list checked; ints/s, image bytes an int and cold start per
     type; torch.profiler traces of the ladder chain and of each wire
@@ -161,7 +164,29 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     streams: 200 chained runs (CUDA events) and a ``decode_all``,
     launches counted from zero (one fused launch a run), every list
     equal to the collection, the chain's salt after 2 runs equal to the
-    plain version's on the host; ints/s beside phase 4's.
+    plain version's on the host; ints/s beside phase 4's;
+26. ``tools.check_encoded_data`` through its ``main`` on both DINT
+    streams on the card (one run each, every list checked; launches
+    counted from zero: the fused class launch and no class kernel
+    alone), on the ``vbyte`` zoo stream of phase 16 (host decode), and
+    on the single_rect stream against a copy of the collection with one
+    posting changed, which must end in SystemExit;
+27. ``tools.check_index`` on the phase-8 index and the three phase-21
+    indexes, each timed, and on the phase-8 index against the changed
+    collection, which must end in SystemExit;
+28. ``tools.pair_wise_intersect`` over the phase-8 log's two-term
+    queries: ``--engine native`` on the phase-8 index, ``--engine
+    python`` on the card over it (launches counted from zero: the fused
+    class launch decodes the docids) and over ``block_optpfor`` and
+    ``ef`` (host decode, no launch); pairs and total results equal to a
+    numpy oracle over the collection's lists;
+29. ``tools.dict_perf_test`` on both bench dictionaries, ``native`` at
+    10M copies and 10 runs and ``numpy`` (its checksum equal to a numpy
+    replay of the same draw); the numpy coders of
+    ``codecs/encode_batch`` (``prefer_native=False``) on the
+    collection's first lists up to 1M ints (single) and 50K (multi),
+    bytes equal to the native encoder's, both timed.  The fused
+    launches of phases 26 and 28 count under the path ``tools``.
 
 Phases 3 and 7 also time ``torch.gather`` (the library call computing
 K1's and K6/K7's gather, without the salt and the n mask) in turns with
@@ -170,8 +195,10 @@ the kernels on the same rows.
 Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``,
 ``{"zoo": ...}``, ``{"sharded_steps": ...}``, ``{"sharded_serve": ...}``,
 ``{"stats_merge": ...}``, ``{"dryrun": ...}``, ``{"family_builds":
-...}``, ``{"block_serve": ...}``, ``{"ef": ...}``, ``{"native": ...}``
-and ``{"local_chain": ...}`` lines among them), the
+...}``, ``{"block_serve": ...}``, ``{"ef": ...}``, ``{"native": ...}``,
+``{"local_chain": ...}``, ``{"check_encoded_data": ...}``,
+``{"check_index": ...}``, ``{"pair_wise_intersect": ...}`` and
+``{"dict_perf_test": ...}`` lines among them), the
 dry run's summary line, the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
 fused class launch) and, last, ``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
@@ -245,6 +272,14 @@ FAMILY_RUNS = 3  # timed passes of tools.queries over the new kinds
 EF_DEVICE_ITERS = 20  # CUDA-event timings of the ef_device decode
 LOCAL_CHAIN_RUNS = 200  # chained runs of LocalDecodeEngine.decode_chain
 LOCAL_PLAIN_RUNS = 2  # its chain salt held to the plain version's
+TOOLS_ZOO = "vbyte"  # the zoo stream check_encoded_data reads (host decode)
+PAIR_NATIVE_RUNS = 11  # src/pair_wise_intersect.cpp's 10 timed + 1
+PAIR_PYTHON_RUNS = 3  # tools/pair_wise_intersect's default
+PAIR_KINDS = ("block_optpfor", "ef")  # the python engine's other kinds
+DICT_COPIES = 10_000_000  # src/dict_perf_test.cpp's copies and runs
+DICT_RUNS = 10
+CODER_SINGLE_INTS = 1_000_000  # ints the numpy coders parse, single
+CODER_MULTI_INTS = 50_000  # and multi (six selectors, two widths each)
 DECODE_KERNELS = ("K1_gather32", "K2_gather16", "K3_zero")
 FUSED = "K123_decode_classes"  # the engines' one launch over the classes
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
@@ -1788,22 +1823,22 @@ def raw_phases(data, base: str, smi: str, device="cuda"):
 
 def zoo_data(base: str):
     """Every zoo type encoded from the collection under
-    ``.chip_smoke/zoo/`` (kept when present), the lists in a process
-    pool; returns ({type: stream path}, {type: encode seconds})."""
+    ``.chip_smoke/zoo/`` (kept when present), the lists of all the types
+    in one process pool; returns ({type: stream path}, encode seconds or
+    None when every stream was there)."""
     from dint_tpu_torch.tools import common, encode
 
     root = os.path.join(CACHE, "zoo")
     os.makedirs(root, exist_ok=True)
-    paths, secs = {}, {}
-    for t in common.VROOM_ZOO:
-        paths[t] = os.path.join(root, f"zoo.{t}")
-        if os.path.exists(paths[t] + ".skips.npz"):
-            continue
-        t0 = time.perf_counter()
-        encode.encode_zoo(t, base + ".docs", paths[t],
-                          workers=os.cpu_count() or 1)
-        secs[t] = time.perf_counter() - t0
-        log(f"encoded {t} in {secs[t]:.1f} s")
+    paths = {t: os.path.join(root, f"zoo.{t}") for t in common.VROOM_ZOO}
+    todo = {t: p for t, p in paths.items()
+            if not os.path.exists(p + ".skips.npz")}
+    if not todo:
+        return paths, None
+    t0 = time.perf_counter()
+    encode.encode_zoo_many(todo, base + ".docs", workers=os.cpu_count() or 1)
+    secs = time.perf_counter() - t0
+    log(f"encoded {len(todo)} zoo types in one pool in {secs:.1f} s")
     return paths, secs
 
 
@@ -1827,8 +1862,7 @@ def zoo_phases(base: str, smi: str, device="cuda"):
     reset_launch_counts()
     for t in common.VROOM_ZOO:
         n_ints = None
-        entry = {"stream_bytes": os.path.getsize(paths[t]),
-                 "encode_s": enc_s.get(t)}
+        entry = {"stream_bytes": os.path.getsize(paths[t])}
         for wire, runs in ((False, ZOO_RUNS), (True, ZOO_WIRE_RUNS)):
             if wire and t not in decode.WIRE_ENGINES:
                 continue
@@ -1860,6 +1894,7 @@ def zoo_phases(base: str, smi: str, device="cuda"):
         del eng
         torch.cuda.empty_cache()
     return {"types": types, "profiles": profiles, "data_s": data_s,
+            "encode_all_s": enc_s, "paths": paths,
             "kernel_launches": sum(counts.values()), "nvidia_smi": smi}
 
 
@@ -2612,6 +2647,241 @@ def local_chain_phase(data, base, image_recs, smi, device="cuda"):
     return recs, counts
 
 
+# ---------------------------------------------------------------------------
+# The last tools: check_encoded_data, check_index, pair_wise_intersect,
+# dict_perf_test, and the numpy coders of encode_batch
+# ---------------------------------------------------------------------------
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def changed_collection(base: str) -> str:
+    """A copy of the collection under ``CACHE`` with one docid of the
+    first list that leaves room moved up by one (the list stays strictly
+    increasing), the ``.freqs`` copied as they are; returns its
+    basename."""
+    words = np.fromfile(base + ".docs", dtype="<u4")
+    pos = 1 + int(words[0])  # past the num-docs singleton
+    while pos < words.shape[0]:
+        n = int(words[pos])
+        docs = words[pos + 1:pos + 1 + n].astype(np.int64)
+        room = np.flatnonzero(np.diff(docs) >= 2)
+        if room.size:
+            words[pos + 1 + int(room[0])] += 1
+            out = os.path.join(CACHE, "changed")
+            words.tofile(out + ".docs")
+            shutil.copyfile(base + ".freqs", out + ".freqs")
+            return out
+        pos += 1 + n
+    fail("no list of the collection leaves room for a changed posting")
+
+
+def check_encoded_phase(data, base: str, zoo_paths, device="cuda"):
+    """Phase 26: ``tools.check_encoded_data`` through its ``main`` on both
+    DINT streams on ``device`` (launches counted from zero: the fused
+    class launch and no class kernel alone), on the ``TOOLS_ZOO`` zoo
+    stream (host decode), and on the single_rect stream against the
+    collection with one posting changed, which must end in SystemExit.
+    Returns (record, summed launch counts of the DINT runs, the changed
+    collection's basename)."""
+    from dint_tpu_torch.tools import check_encoded_data as ced
+
+    out, counts = {}, {}
+    for t in TYPES:
+        stream, dict_file = data[t]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = ced.main([t, stream, base + ".docs", "--dict", dict_file,
+                        "--device", device])
+        secs = time.perf_counter() - t0
+        c = launch_counts()
+        if rec.get("check") != "ok":
+            fail(f"check_encoded_data {t}: the collection check did not pass")
+        require_fused(c, f"tools (check_encoded_data {t})")
+        counts = add_counts(counts, c)
+        out[t] = {"s": secs, "num_integers": int(rec["num_integers"]),
+                  "fused_launches": c[FUSED]}
+    t0 = time.perf_counter()
+    rec = ced.main([TOOLS_ZOO, zoo_paths[TOOLS_ZOO], base + ".docs"])
+    if rec.get("check") != "ok":
+        fail(f"check_encoded_data {TOOLS_ZOO}: the check did not pass")
+    out[TOOLS_ZOO] = {"s": time.perf_counter() - t0,
+                      "num_integers": int(rec["num_integers"])}
+    bad = changed_collection(base)
+    stream, dict_file = data[TYPES[0]]
+    t0 = time.perf_counter()
+    try:
+        ced.main([TYPES[0], stream, bad + ".docs", "--dict", dict_file,
+                  "--device", device])
+    except SystemExit as e:
+        out["changed_posting"] = {"type": TYPES[0], "exit": str(e),
+                                  "s": time.perf_counter() - t0}
+    else:
+        fail("check_encoded_data passed a collection with a changed posting")
+    log(f"check_encoded_data: {out}")
+    return out, counts, bad
+
+
+def check_index_phase(base: str, paths, family, bad: str):
+    """Phase 27: ``tools.check_index`` on the serve index and on the
+    ``FAMILY_KINDS`` indexes, each timed; then on the serve index
+    against the collection with one posting changed, which must end in
+    SystemExit."""
+    from dint_tpu_torch.tools import check_index as ci
+
+    out = {}
+    kinds = [(SERVE_TYPE, paths[0])] + [(k, family[k]) for k in FAMILY_KINDS]
+    for kind, path in kinds:
+        t0 = time.perf_counter()
+        ci.main([kind, path, base])
+        out[kind] = {"s": time.perf_counter() - t0}
+    try:
+        ci.main([SERVE_TYPE, paths[0], bad])
+    except SystemExit as e:
+        out["changed_posting"] = {"type": SERVE_TYPE, "exit": str(e)}
+    else:
+        fail("check_index passed a collection with a changed posting")
+    log(f"check_index: {out}")
+    return out
+
+
+def pair_oracle(docs, qfile: str):
+    """(two-term queries of the log, the sum of their intersection
+    sizes from numpy over the collection's lists)."""
+    from dint_tpu_torch.query import boolean
+
+    pairs = [q for q in boolean.parse_query_log(qfile)
+             if len(set(q)) == 2 and all(0 <= t < len(docs) for t in q)]
+    total = sum(np.intersect1d(docs[a], docs[b], assume_unique=True).shape[0]
+                for a, b in pairs)
+    return pairs, int(total)
+
+
+def pair_phase(docs, paths, family, device="cuda"):
+    """Phase 28: ``tools.pair_wise_intersect`` over the serve log's
+    two-term queries: the ``native`` engine and the ``python`` engine on
+    ``device`` over the serve index (launches counted from zero: the
+    fused class launch decodes the docids), then the ``python`` engine
+    over ``PAIR_KINDS`` (host decode, no launch); every ``pairs`` and
+    ``total_results`` equal to the numpy oracle's.  Returns (record,
+    launch counts of the DINT python run)."""
+    from dint_tpu_torch.tools import pair_wise_intersect as pwi
+
+    idx_path, _, qfile = paths
+    pairs, want = pair_oracle(docs, qfile)
+    recs, counts = {}, {}
+    t0 = time.perf_counter()
+    recs["native"] = pwi.main([SERVE_TYPE, idx_path, "--queries", qfile,
+                               "--engine", "native", "--runs",
+                               str(PAIR_NATIVE_RUNS)])
+    secs = {"native": time.perf_counter() - t0}
+    for kind in (SERVE_TYPE,) + PAIR_KINDS:
+        path = idx_path if kind == SERVE_TYPE else family[kind]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        recs[f"python/{kind}"] = pwi.main([kind, path, "--queries", qfile,
+                                           "--engine", "python", "--runs",
+                                           str(PAIR_PYTHON_RUNS), "--device",
+                                           device])
+        secs[f"python/{kind}"] = time.perf_counter() - t0
+        c = launch_counts()
+        if kind == SERVE_TYPE:
+            require_fused(c, "tools (pair_wise_intersect)")
+            counts = c
+        elif sum(c.values()):
+            fail(f"pair_wise_intersect {kind} launched a kernel: {c}")
+    for name, r in recs.items():
+        if r["pairs"] != str(len(pairs)) or r["total_results"] != str(want):
+            fail(f"pair_wise_intersect {name}: {r['pairs']} pairs, "
+                 f"{r['total_results']} results; the oracle {len(pairs)}, "
+                 f"{want}")
+    out = {"pairs": len(pairs), "total_results": want, "seconds": secs,
+           "records": {k: {f: r[f] for f in ("avg_us", "q50_us")}
+                       for k, r in recs.items()},
+           "fused_launches": counts.get(FUSED, 0)}
+    log(f"pair_wise_intersect: {out}")
+    return out, counts
+
+
+def first_lists(gap_lists, limit: int):
+    """The collection's lists in order, each that still fits, until
+    ``limit`` ints."""
+    out, n = [], 0
+    for g in gap_lists:
+        if n + g.shape[0] <= limit:
+            out.append(g)
+            n += g.shape[0]
+    return out, n
+
+
+def dict_coder_phase(data, base: str):
+    """Phase 29: ``tools.dict_perf_test`` on both bench dictionaries,
+    ``native`` at the reference's copies and runs and ``numpy``, its
+    checksum equal to a numpy replay over the same draw; then the numpy
+    coders of ``codecs/encode_batch`` (``prefer_native=False``) on the
+    collection's first lists, bytes equal to the native encoder's on the
+    same lists, both timed."""
+    from dint_tpu_torch.codecs import encode_batch
+    from dint_tpu_torch.config import NUM_ENTRIES
+    from dint_tpu_torch.tools import common, decode
+    from dint_tpu_torch.tools import dict_perf_test as dpt
+
+    out = {}
+    for t, kind in (("single_rect_dint", "rectangular"),
+                    ("multi_packed_dint", "multi")):
+        dict_file = data[t][1]
+        t0 = time.perf_counter()
+        native = dpt.main([dict_file, kind, "--copies", str(DICT_COPIES),
+                           "--runs", str(DICT_RUNS)])
+        t1 = time.perf_counter()
+        numpy_rec = dpt.main([dict_file, kind, "--copies", str(DICT_COPIES),
+                              "--engine", "numpy"])
+        t2 = time.perf_counter()
+        d = dpt.load(dict_file, kind)
+        view = d.decode_view()
+        gidx = dpt.sample_indices(d, view, kind, DICT_COPIES,
+                                  np.random.default_rng(13))
+        offs = view.offsets[gidx // NUM_ENTRIES, gidx % NUM_ENTRIES]
+        replay = int(view.table[offs.astype(np.int64)].astype(np.int64).sum())
+        if numpy_rec["checksum"] != str(replay):
+            fail(f"dict_perf_test {kind}: checksum {numpy_rec['checksum']}, "
+                 f"the replay's {replay}")
+        out[kind] = {"native_ns_per_copy": float(native["ns_per_copy"]),
+                     "numpy_ns_per_copy": float(numpy_rec["ns_per_copy"]),
+                     "checksum": replay, "copies": DICT_COPIES,
+                     "runs": DICT_RUNS, "native_s": t1 - t0,
+                     "numpy_s": t2 - t1}
+    gap_lists, _ = common.gap_lists_of(base + ".docs")
+    coders = {}
+    for name, t, fn, limit in (
+            ("single", "single_rect_dint", encode_batch.encode_single_lists,
+             CODER_SINGLE_INTS),
+            ("multi", "multi_packed_dint", encode_batch.encode_multi_lists,
+             CODER_MULTI_INTS)):
+        d = decode.load_dictionary(t, data[t][1])
+        lists, n = first_lists(gap_lists, limit)
+        t0 = time.perf_counter()
+        got = fn(d, lists, prefer_native=False)
+        t1 = time.perf_counter()
+        want = fn(d, lists, prefer_native=True)
+        t2 = time.perf_counter()
+        if got != want:
+            bad = next(i for i, (a, b) in enumerate(zip(got[0], want[0]))
+                       if a != b) if got[0] != want[0] else None
+            fail(f"numpy coders ({name}) differ from the native encoder "
+                 f"(first differing list {bad})")
+        coders[name] = {"dictionary": t, "lists": len(lists), "ints": n,
+                        "bytes": sum(len(s) for s in got[0]),
+                        "numpy_s": t1 - t0, "native_s": t2 - t1,
+                        "numpy_ints_x_sec": n / (t1 - t0),
+                        "native_ints_x_sec": n / (t2 - t1)}
+    out["coders"] = coders
+    log(f"dict_perf_test and the numpy coders: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=2026)
@@ -2824,12 +3094,44 @@ def main(argv=None) -> int:
                                       "device": kind}}), flush=True)
     mark(t_start, "phase 25")
 
+    # 26. check_encoded_data on both DINT streams on the card (launches
+    # counted from zero), a zoo stream, and a changed collection
+    check_enc, tools_counts, bad = check_encoded_phase(data, base,
+                                                       zoo["paths"])
+    print(json.dumps({"check_encoded_data": check_enc}), flush=True)
+    mark(t_start, "phase 26")
+
+    # 27. check_index on the serve index and the three family indexes
+    check_idx = check_index_phase(base, paths, family, bad)
+    print(json.dumps({"check_index": check_idx}), flush=True)
+    mark(t_start, "phase 27")
+
+    # 28. pair_wise_intersect: native, and python on the card (launches
+    # counted from zero), over the serve log's two-term queries
+    pair, pair_counts = pair_phase(read_collection(base)[0], paths, family)
+    tools_counts = add_counts(tools_counts, pair_counts)
+    print(json.dumps({"pair_wise_intersect": {**pair, "device": kind,
+                                              "nvidia_smi": smi}}),
+          flush=True)
+    mark(t_start, "phase 28")
+
+    # 29. dict_perf_test on both bench dictionaries, the numpy coders
+    dict_coders = dict_coder_phase(data, base)
+    print(json.dumps({"dict_perf_test": {**dict_coders, "nvidia_smi": smi}}),
+          flush=True)
+    for f in (bad + ".docs", bad + ".freqs"):
+        os.remove(f)
+    mark(t_start, "phase 29")
+    if tools_counts[FUSED] <= 0:
+        fail("the tools path never launched the fused class launch")
+
     def by_path(key):
         return {"decode": sum(c[key] for c in counts.values()),
                 "bench": bench_counts[key], "ablate": ablate_counts[key],
                 "serve": serve["launches"][key],
                 "sharded_serve": sharded_serve["launches"][key],
-                "local_chain": sum(c[key] for c in local_counts.values())}
+                "local_chain": sum(c[key] for c in local_counts.values()),
+                "tools": tools_counts[key]}
 
     for k in kernels:
         # a class kernel's launches: those of its own (the ablation's K1)
@@ -2861,6 +3163,9 @@ def main(argv=None) -> int:
                "dryrun": dry, "family_builds": family_builds,
                "block_serve": block, "ef": ef_rec, "native": native,
                "local_chain": local, "local_chain_launches": local_counts,
+               "check_encoded_data": check_enc, "check_index": check_idx,
+               "pair_wise_intersect": pair, "dict_perf_test": dict_coders,
+               "tools_launches": tools_counts,
                "wall_s": time.perf_counter() - t_start}
     log(f"done in {summary['wall_s']:.1f} s")
     if args.out:

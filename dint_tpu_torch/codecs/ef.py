@@ -15,6 +15,7 @@ pointer-walking enumerators (those are ``codecs/ef_enum.py``).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List
 
@@ -37,13 +38,13 @@ class GlobalParameters:
 
 @dataclass
 class Configuration:
-    """configuration.hpp:27-35, at its defaults (the reference package
-    also reads DS2I_* environment overrides; the port reads none)."""
+    """configuration.hpp:27-35 (DS2I_* environment overrides, read at
+    import as the C++ reference reads them at start-up)."""
 
-    eps1: float = 0.03
-    eps2: float = 0.3
-    fix_cost: int = 64
-    log_partition_size: int = 7
+    eps1: float = float(os.environ.get("DS2I_EPS1", 0.03))
+    eps2: float = float(os.environ.get("DS2I_EPS2", 0.3))
+    fix_cost: int = int(os.environ.get("DS2I_FIXCOST", 64))
+    log_partition_size: int = int(os.environ.get("DS2I_LOG_PART", 7))
 
 
 PARAMS = GlobalParameters()

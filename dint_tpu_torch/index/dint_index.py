@@ -450,14 +450,86 @@ def list_freqs_host(index: DintIndex, i: int) -> np.ndarray:
     )
 
 
-def verify_index(index: DintIndex, basename: str) -> None:
-    """verify_collection equivalent (verify_collection.hpp:7-52)."""
+def decode_index_host(index: DintIndex) -> Tuple[np.ndarray, np.ndarray,
+                                                 np.ndarray]:
+    """Every posting of the index decoded on the host in one batch: the
+    full DINT blocks through the native unit decoder
+    (``query/native_host.decode_units_flat``, one call per half), the
+    partial blocks through ``interpolative.decode_blocks_batch``.
+    Returns (docids, freqs, offsets): list i's postings are
+    ``[offsets[i], offsets[i + 1])``.  The same values as
+    ``list_docids_host`` / ``list_freqs_host`` list by list."""
+    from ..query import native_host
+
     index.ensure_docs_end()
+    bp = index.block_ptr.astype(np.int64)
+    list_n = index.list_n.astype(np.int64)
+    offsets = np.zeros(list_n.shape[0] + 1, dtype=np.int64)
+    np.cumsum(list_n, out=offsets[1:])
+    lst = np.repeat(np.arange(list_n.shape[0]), bp[1:] - bp[:-1])
+    blk = np.arange(bp[-1], dtype=np.int64)
+    first = bp[lst]
+    pos = (blk - first) * BLOCK_SIZE
+    size = np.minimum(BLOCK_SIZE, list_n[lst] - pos)
+    block_max = index.block_max.astype(np.int64)
+    base = np.where(blk > first, np.concatenate([[0], block_max[:-1] + 1]), 0)
+    block_end = index.block_end.astype(np.int64)
+    docs_start = np.concatenate([[0], block_end[:-1]])
+    docs_end = index.docs_end.astype(np.int64)
+    out_at = offsets[lst] + pos
+    full = np.flatnonzero(size == BLOCK_SIZE)
+    part = np.flatnonzero(size < BLOCK_SIZE)
+    lanes = np.arange(BLOCK_SIZE, dtype=np.int64)
+    docs = np.zeros(int(offsets[-1]), dtype=np.uint32)
+    freqs = np.zeros(int(offsets[-1]), dtype=np.uint32)
+    for half, (s, e, view) in enumerate((
+            (docs_start, docs_end, index.docs_dict.decode_view()),
+            (docs_end, block_end, index.freqs_dict.decode_view()))):
+        if full.size:
+            s_f, e_f = s[full], e[full]
+            if index.kind == "multi":
+                sc = index.arena[s_f].astype(np.int64)
+                ctx = sc % NUM_SELECTORS
+                b_bits = np.where(sc < NUM_SELECTORS, 16, 8)
+                s_f = s_f + 1
+            else:
+                ctx = np.zeros(full.shape[0], np.int64)
+                b_bits = np.full(full.shape[0], 16)
+            vals = native_host.decode_units_flat(
+                view, index.arena, s_f, e_f - s_f,
+                np.full(full.shape[0], BLOCK_SIZE), ctx, b_bits,
+            ).reshape(-1, BLOCK_SIZE).astype(np.int64)
+            if half == 0:
+                vals = np.cumsum(vals + 1, axis=1) - 1 + base[full][:, None]
+            else:
+                vals = vals + 1
+            (docs if half == 0 else freqs)[
+                out_at[full][:, None] + lanes] = vals.astype(np.uint32)
+        if part.size:
+            if half == 0:
+                specs = [(int(s[b]), int(size[b]),
+                          int(block_max[b] - base[b] - (size[b] - 1)))
+                         for b in part]
+            else:
+                specs = [(int(s[b]), int(size[b]), interpolative.UNKNOWN_SUM)
+                         for b in part]
+            for b, v in zip(part, interpolative.decode_blocks_batch(
+                    index.arena, specs)):
+                v = v.astype(np.int64)
+                v = np.cumsum(v + 1) - 1 + base[b] if half == 0 else v + 1
+                (docs if half == 0 else freqs)[
+                    out_at[b]:out_at[b] + size[b]] = v.astype(np.uint32)
+    return docs, freqs, offsets
+
+
+def verify_index(index: DintIndex, basename: str) -> None:
+    """verify_collection equivalent (verify_collection.hpp:7-52): every
+    docid and freq of every list, decoded by ``decode_index_host``,
+    equal to the collection's."""
+    docs_all, freqs_all, offs = decode_index_host(index)
     view = open_freq_collection(basename)
     for i, (docs, freqs) in enumerate(view):
-        got_d = list_docids_host(index, i)
-        got_f = list_freqs_host(index, i)
-        if not np.array_equal(got_d, docs):
+        if not np.array_equal(docs_all[offs[i]:offs[i + 1]], docs):
             raise SystemExit(f"docid mismatch in list {i}")
-        if not np.array_equal(got_f, freqs):
+        if not np.array_equal(freqs_all[offs[i]:offs[i + 1]], freqs):
             raise SystemExit(f"freq mismatch in list {i}")

@@ -111,10 +111,14 @@ def gap_stream(collection: BinaryCollection, compute_gaps: bool):
     Reference block_statistics.hpp:62-79: for docs, skip the leading
     num-docs singleton and d-gap each list; for freqs subtract 1.
     """
+    from ..utils.progress import ProgressLogger
+
     it = iter(range(len(collection)))
     if compute_gaps:
         next(it)  # leading num-docs singleton
+    prog = ProgressLogger(len(collection), "statistics: lists scanned")
     for i in it:
+        prog.add()
         seq = collection.sequence(i)
         if seq.shape[0] == 0:
             continue

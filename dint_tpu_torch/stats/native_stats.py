@@ -240,3 +240,62 @@ def records_build(lens, freqs, data) -> "np.ndarray | None":
         lens.shape[0], MAX_ENTRY_SIZE, out.ctypes.data,
     )
     return out
+
+
+def compute_contexts_native(gap_lists, total_integers: int, multi: bool):
+    """Collect + filter + sort natively over already gap-transformed
+    lists.  Returns a list of SelectorStats (1 for single,
+    NUM_SELECTORS for multi), or None when the native library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from .block_stats import SelectorStats
+
+    sizes = np.asarray(TARGET_SIZES, dtype=np.int32)
+    h = lib.stats_create(
+        1 if multi else 0, sizes.ctypes.data, len(TARGET_SIZES),
+        BLOCK_SIZE, NUM_SELECTORS,
+    )
+    try:
+        # feed in bounded chunks so peak memory stays ~2x the chunk
+        chunk = []
+        pending = 0
+
+        def flush():
+            nonlocal chunk, pending
+            if not chunk:
+                return
+            flat = np.ascontiguousarray(np.concatenate(chunk), dtype=np.uint32)
+            offs = np.zeros(len(chunk) + 1, dtype=np.int64)
+            np.cumsum([c.shape[0] for c in chunk], out=offs[1:])
+            lib.stats_add(h, flat.ctypes.data, offs.ctypes.data, len(chunk))
+            chunk, pending = [], 0
+
+        for buf in gap_lists:
+            buf = np.asarray(buf, dtype=np.uint32)
+            chunk.append(buf)
+            pending += buf.shape[0]
+            if pending > (16 << 20):
+                flush()
+        flush()
+
+        contexts = []
+        for ctx in range(NUM_SELECTORS if multi else 1):
+            u = lib.stats_finalize(
+                h, ctx, float(total_integers), float(INITIAL_BPI),
+                float(CODEWORD_BITS), float(DSF_FILTER_THRESHOLD),
+            )
+            lens = np.empty(u, dtype=np.int32)
+            freqs = np.empty(u, dtype=np.int64)
+            # stats_export writes every row whole (padding included)
+            data = np.empty((u, MAX_ENTRY_SIZE), dtype=np.uint32)
+            if u:
+                lib.stats_export(
+                    h, ctx, MAX_ENTRY_SIZE, lens.ctypes.data,
+                    freqs.ctypes.data, data.ctypes.data,
+                )
+            contexts.append(SelectorStats(lens, freqs, data))
+        return contexts
+    finally:
+        lib.stats_destroy(h)

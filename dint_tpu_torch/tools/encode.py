@@ -99,11 +99,20 @@ def encode_zoo(type_name: str, collection_file: str, out_file: str,
     lists first; the stream is the same bytes either way.  The workers
     start from a fork server, not from a fork of this process, whose
     threads (a framework's thread pools) a fork would copy stopped."""
+    return encode_zoo_many({type_name: out_file}, collection_file,
+                           workers)[type_name]
+
+
+def encode_zoo_many(out_files: dict, collection_file: str, workers: int = 1):
+    """``encode_zoo`` for several types at once ({type: out file}): one
+    gap transform and, with ``workers`` > 1, one process pool over the
+    lists of every type, longest lists first.  Returns {type: stats
+    record}."""
     gap_lists, _ = common.gap_lists_of(collection_file)
     ns = [len(g) for g in gap_lists]
-    jobs = [(type_name, g) for g in gap_lists]
+    jobs = [(t, g) for t in out_files for g in gap_lists]
     if workers > 1 and len(jobs) > 1:
-        order = sorted(range(len(jobs)), key=lambda i: -ns[i])
+        order = sorted(range(len(jobs)), key=lambda i: -ns[i % len(ns)])
         ctx = multiprocessing.get_context("forkserver")
         with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
             got = list(ex.map(_encode_zoo_list, [jobs[i] for i in order]))
@@ -112,14 +121,16 @@ def encode_zoo(type_name: str, collection_file: str, out_file: str,
             res[i] = r
     else:
         res = [_encode_zoo_list(j) for j in jobs]
-    payloads = [r[0] for r in res]
-    block_lens = [r[1] for r in res]
-    universes = [r[2] for r in res]
-    meta = stream_mod.write_stream(out_file, payloads, ns, universes,
-                                   block_lens)
-    rec = stream_mod.stream_stats_line(type_name, out_file, meta)
-    common.stats_line(rec)
-    return rec
+    recs = {}
+    for k, (type_name, out_file) in enumerate(out_files.items()):
+        mine = res[k * len(ns):(k + 1) * len(ns)]
+        meta = stream_mod.write_stream(
+            out_file, [r[0] for r in mine], ns, [r[2] for r in mine],
+            [r[1] for r in mine])
+        recs[type_name] = stream_mod.stream_stats_line(type_name, out_file,
+                                                       meta)
+        common.stats_line(recs[type_name])
+    return recs
 
 
 def main(argv=None):

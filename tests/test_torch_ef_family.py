@@ -381,3 +381,49 @@ def test_term_decoder_default_device_raises_without_cuda(ef_files,
     ti = t_fi.FreqIndexEF.load(ef_files["ef"][0])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_fi.EFTermDecoder(ti, device_ef=True)
+
+
+def test_ds2i_overrides_read_like_the_reference():
+    """DS2I_EPS1, DS2I_EPS2 and DS2I_FIXCOST (configuration.hpp:27-35)
+    change the optimal partition in both packages alike: with them set,
+    each package's partitioned sequence has the same words, and they
+    differ from the defaults'."""
+    import subprocess
+    import sys
+
+    code = (
+        "import numpy as np\n"
+        "from dint_tpu.codecs import ef as j\n"
+        "from dint_tpu.utils.bitio import BitBuilder as JB\n"
+        "from dint_tpu_torch.codecs import ef as t\n"
+        "from dint_tpu_torch.utils.bitio import BitBuilder as TB\n"
+        "assert vars(j.CONF) == vars(t.CONF), (j.CONF, t.CONF)\n"
+        "rng = np.random.default_rng(5)\n"
+        "v = np.concatenate([\n"  # dense runs between sparse stretches
+        "    np.arange(0, 3000),\n"
+        "    np.sort(rng.choice(np.arange(3000, 400000), 2000, False)),\n"
+        "    np.arange(400000, 406000),\n"
+        "    np.sort(rng.choice(np.arange(406000, 2000000), 3000, False)),\n"
+        "]).astype(np.uint64)\n"
+        "out = []\n"
+        "for pkg, bb in ((j, JB()), (t, TB())):\n"
+        "    pkg.partitioned_sequence(pkg.indexed_sequence).write(\n"
+        "        bb, v, 2000000, v.shape[0], pkg.PARAMS)\n"
+        "    out.append(bb.words().tolist())\n"
+        "assert out[0] == out[1]\n"
+        "print(t.CONF.fix_cost, len(out[1]), hash(tuple(out[1])))\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    got = {}
+    for name, extra in (("default", {}),
+                        ("set", {"DS2I_EPS1": "0.2", "DS2I_EPS2": "0.9",
+                                 "DS2I_FIXCOST": "7"})):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DS2I_")}
+        env.update(extra, JAX_PLATFORMS="cpu")
+        r = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stderr
+        got[name] = r.stdout.split()
+    assert got["default"][0] == "64" and got["set"][0] == "7"
+    assert got["default"][1:] != got["set"][1:]

@@ -81,6 +81,32 @@ def test_port_file_list_is_complete():
         assert must in rel
 
 
+# the one module of the reference without a counterpart of the same
+# path, and the port's module that takes its place
+RENAMED = {"utils/jaxcfg.py": "backend.py"}
+
+
+def test_every_reference_module_has_its_port():
+    """Each ``.py`` file of ``dint_tpu/`` has a counterpart at the same
+    path in ``dint_tpu_torch/``, but for the modules of ``RENAMED``."""
+    ref_root = os.path.join(REPO, "dint_tpu")
+    ref = sorted(
+        os.path.relpath(os.path.join(root, f), ref_root)
+        for root, _, files in os.walk(ref_root)
+        for f in files if f.endswith(".py")
+    )
+    assert len(ref) > 60 and "tools/decode.py" in ref
+    missing = []
+    for rel in ref:
+        port = RENAMED.get(rel, rel)
+        if not os.path.isfile(os.path.join(REPO, "dint_tpu_torch", port)):
+            missing.append(rel)
+    assert not missing, f"no port of {missing}"
+    for rel in RENAMED:
+        assert rel in ref
+        assert not os.path.exists(os.path.join(REPO, "dint_tpu_torch", rel))
+
+
 @pytest.mark.parametrize("module", [
     "dint_tpu_torch.codecs.interpolative", "dint_tpu_torch.codecs.dint",
     "dint_tpu_torch.index.dint_index", "dint_tpu_torch.query.lazy_decode",
@@ -103,6 +129,11 @@ def test_port_file_list_is_complete():
     "dint_tpu_torch.parallel.build", "dint_tpu_torch.parallel.serve",
     "dint_tpu_torch.parallel.dryrun", "dint_tpu_torch.stats.collectors",
     "dint_tpu_torch.stats.device_merge", "dint_tpu_torch.stats.block_stats",
+    "dint_tpu_torch.tools.check_encoded_data",
+    "dint_tpu_torch.tools.check_index",
+    "dint_tpu_torch.tools.pair_wise_intersect",
+    "dint_tpu_torch.tools.dict_perf_test", "dint_tpu_torch.utils.progress",
+    "dint_tpu_torch.codecs.encode_batch", "dint_tpu_torch.stats.native_stats",
 ])
 def test_serving_modules_import_without_jax(module):
     """Each module of the serving and bench slices imports in a fresh interpreter

@@ -302,6 +302,21 @@ def test_encode_zoo_writes_the_reference_bytes(zoo, type_name, tmp_path):
     assert _bytes(pooled) == _bytes(mine)
 
 
+def test_encode_zoo_many_writes_the_reference_bytes(zoo, tmp_path):
+    """Every zoo type encoded in one process pool: each stream and skip
+    sidecar is the reference's."""
+    outs = {t: str(tmp_path / f"many.{t}") for t in ZOO}
+    recs = t_encode.encode_zoo_many(outs, zoo[1] + ".docs", workers=2)
+    assert list(recs) == list(ZOO)
+    for t in ZOO:
+        ref = zoo[0][t][1]
+        assert _bytes(outs[t]) == _bytes(ref), t
+        a = np.load(outs[t] + ".skips.npz")
+        b = np.load(ref + ".skips.npz")
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
 @pytest.mark.parametrize("type_name", ZOO)
 def test_each_package_reads_the_others_stream(zoo, type_name):
     mine, ref = zoo[0][type_name]
