@@ -15,7 +15,7 @@ of the batch encoder.
 Run from the root of a checkout.  Phases, each fatal on failure:
 
 1. card: the device's name and power limit; build the CUDA kernels
-   (``dint_tpu_torch/kernels/csrc/*.cu``, one nvcc per source for
+   (``dint_tpu_torch/kernels/csrc/*.cu``, six sources, one nvcc each for
    sm_90a) and the native host libraries (``native/*.cpp``, g++), all
    side by side;
 2. data: ``bench.py``'s synthetic collection (6000 lists, 4M docs,
@@ -35,18 +35,31 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    with its twin's time and its memory bound; the chained-run salt on
    the card against the twins' on the host for the bench image; a
    torch.profiler trace of 200 chained runs (device busy time and idle
-   share a run);
+   share a run); K2 and K3 also timed beside their library calls
+   (``torch.gather`` on the int16 view of K2's table, ``fill_`` over K3's
+   output bytes); X1, the fused ladder unpack, against its plain version
+   under ``torch.equal`` in both layouts (the bench ladder image and the
+   sharded pack of the same stream, and edge inputs of every ladder
+   width: pfor and pforb, a lane grid no multiple of a block, one-row
+   classes, words with bit 31 set, bases that wrap) for the three salts,
+   X2, the EF decode, against its plain version on an edge arena (n = 0,
+   w = 0, one-word regions, a list of many chunks, values past 2^31); both
+   X1 entries timed in turns with their plain versions at the main
+   path's shapes;
 4. decode path: ``decode_stream(..., runs=2000, check_collection,
-   device="cuda")`` for both types, exact over every list; launch counts
-   reset just before and read just after: one fused launch a run, no
-   stand-alone K1-K3 launch;
+   device="cuda")`` for both types through the gather image and through
+   the ladder image, exact over every list; launch counts reset just
+   before and read just after each: one fused launch a run and no
+   stand-alone K1-K3 launch (gather), one X1 launch a run (ladder);
 5. bench path: ``tools.bench.run`` on the card at full size: the gather
    and ladder legs of both types under 2000 chained runs (the ladder
    legs checked against the whole collection, the gather legs against a
    sample of lists, as ``bench.py`` does) and the store probe (K5);
    launch counts reset just before and read just after; the record is
-   printed with the card in it; a torch.profiler trace of 50 chained
-   ladder runs (device busy time against the bytes bound);
+   printed with the card in it (one X1 launch a ladder run); torch.profiler
+   traces of 50 chained ladder runs through X1 and through the torch-op
+   chain (device busy time against the bytes bound), and both DINT ladder
+   images chained in turns, X1 beside the torch-op chain;
 6. K5 against its plain version under ``torch.equal`` at the bench
    output size, at one tile, at tile heights that are no power of two
    and, through its C entry, with a last tile cut short, the same three
@@ -109,9 +122,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     decoded by ``tools.decode``'s device path through the ladder image
     at 500 chained runs and, for
     the eight types with one, through its wire-structure engine at 100,
-    every list checked; ints/s, image bytes an int and cold start per
-    type; torch.profiler traces of the ladder chain and of each wire
-    engine family;
+    every list checked, launches counted from zero for each (one X1
+    launch a run on the ladder image and on optpfor's folded classes);
+    ints/s, image bytes an int and cold start per type; each ladder image
+    chained in turns through X1 and the torch-op chain; torch.profiler
+    traces of the ladder chain and of each wire engine family;
 17. sharded steps, one NCCL rank on the card (``parallel.dist.run_ranks``;
     NCCL runs one rank a card and the host has one): ``stats_training_step``
     over every full 256-int block of the collection's docid gaps with
@@ -119,7 +134,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     the blocks times the sum of 256/s; ``ladder_shard_pack`` and
     ``ladder_sharded_decode_step`` over the single_rect stream's values,
     reassembled equal to the source and to
-    ``UnpackEngine.decode_all_ordered``; the dry run's AND and top-k steps
+    ``UnpackEngine.decode_all_ordered``, its classes in one launch of X1's
+    rows entry (counted in the rank); the dry run's AND and top-k steps
     at its shapes against numpy; each step timed by CUDA events;
 18. sharded serving: ``serve_ranked_sharded`` on one NCCL rank over the
     phase-8 index and log, unpruned and pruned, top-10 equal to phase
@@ -149,12 +165,15 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     lists against the collection; µs a query beside phase 9's
     ``ranked_or``;
 23. EF: every list of the ``ef`` index through ``EFTermDecoder(device=
-    "cuda", device_ef=True)``, equal to the host decode and the
-    collection; ``ef_device.decode_tensors`` timed by CUDA events against
-    its bytes bound and the host's ``list_docids`` loop, with a profiler
-    trace; then ``tools.queries ef ... --engine device --device-ef``: no
-    K4 and no class launch (the row path, unpruned, the reference's
-    gates), top-10 against the oracle, counts against phase 11's;
+    "cuda", device_ef=True)``, one X2 call, equal to the host decode and
+    the collection; ``decode_lists``' parts (prepare, upload, decode,
+    download, split) timed one by one; X2 against its plain version on
+    every list under ``torch.equal``, both timed in turns (CUDA events, L2
+    flushed) against the bytes bound and the host's ``list_docids`` loop,
+    with profiler traces; then ``tools.queries ef ... --engine device
+    --device-ef``: X2 launched, no K4 and no class launch (the row path,
+    unpruned, the reference's gates), top-10 against the oracle, counts
+    against phase 11's;
 24. the native cursor engine: ``tools.queries <kind>
     and:or:ranked_or:wand:maxscore --engine native`` over
     ``multi_packed_dint``, ``block_optpfor`` and ``ef`` (its u32 block
@@ -199,8 +218,9 @@ Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``,
 ``{"local_chain": ...}``, ``{"check_encoded_data": ...}``,
 ``{"check_index": ...}``, ``{"pair_wise_intersect": ...}`` and
 ``{"dict_perf_test": ...}`` lines among them), the
-dry run's summary line, the card line, one ``{"kernels": [...]}`` line (K1-K7 and the
-fused class launch) and, last, ``{"ok": true,
+dry run's summary line, the card line, one ``{"kernels": [...]}`` line
+(K1-K7, the fused class launch, X1's two entries and X2) and, last,
+``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
 no card or no checkout around it.
 """
@@ -269,7 +289,7 @@ FAMILY_OPS = "ranked_or:wand:maxscore:and:or"  # tools.queries --engine device
 NATIVE_OPS = "and:or:ranked_or:wand:maxscore"  # tools.queries --engine native
 NATIVE_KINDS = (SERVE_TYPE, BLOCK_SERVE, "ef")
 FAMILY_RUNS = 3  # timed passes of tools.queries over the new kinds
-EF_DEVICE_ITERS = 20  # CUDA-event timings of the ef_device decode
+EF_DEVICE_ITERS = 50  # CUDA-event timings of X2 and its plain version
 LOCAL_CHAIN_RUNS = 200  # chained runs of LocalDecodeEngine.decode_chain
 LOCAL_PLAIN_RUNS = 2  # its chain salt held to the plain version's
 TOOLS_ZOO = "vbyte"  # the zoo stream check_encoded_data reads (host decode)
@@ -282,6 +302,11 @@ CODER_SINGLE_INTS = 1_000_000  # ints the numpy coders parse, single
 CODER_MULTI_INTS = 50_000  # and multi (six selectors, two widths each)
 DECODE_KERNELS = ("K1_gather32", "K2_gather16", "K3_zero")
 FUSED = "K123_decode_classes"  # the engines' one launch over the classes
+X1 = "X1_ladder_unpack"  # the ladder engines' one launch a run
+X1_ROWS = "X1_ladder_rows"  # X1's entry for the sharded step's rows
+X2 = "X2_ef_decode"
+LADDER_TURN_RUNS = 500  # chained runs a turn, X1 beside the torch-op chain
+ZOO_TURN_RUNS = 200
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
 # the ablation's v_gather32 is K1 alone; its v_ship runs the fused launch
 ABLATE_KERNELS = ("K1_gather32", "K6_onehot_block", "K7_onehot_group")
@@ -295,6 +320,10 @@ INT32_OPS_PER_S = SMS * 64 * SM_HZ
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core peak (data sheet)
 LIBRARY_GATHER = ("torch.gather(tab, 1, vidx): the same gather, int64 index "
                   "made beforehand, without the salt add and the n mask")
+LIBRARY_GATHER16 = ("torch.gather(tab.view(int16), 1, vidx): the same u16 "
+                    "gather into int16, int64 index made beforehand, without "
+                    "the salt add and the n mask")
+LIBRARY_FILL = "out.fill_(v) over the same output bytes"
 
 
 def fail(msg: str) -> None:
@@ -650,6 +679,13 @@ def time_kernels(engine, errs, card_name):
     # add and n mask
     k1 = next(c for c in engine._classes if c.mode == 32)
     lib_idx = k1.vidx.to(torch.int64)
+    # K2's: torch.gather on the int16 view of the u16-packed table (byte
+    # index idx is halfword idx of the little-endian words), no salt, no
+    # n mask; K3's: fill_ over the same output bytes
+    k2 = next(c for c in engine._classes if c.mode == 16)
+    lib16_tab, lib16_idx = k2.tab.view(torch.int16), k2.vidx.to(torch.int64)
+    lib_fill = torch.empty((cases["K3_zero"][2], N_OUT), dtype=torch.int32,
+                           device=engine.device)
 
     def three():
         for c in engine._classes:
@@ -667,7 +703,9 @@ def time_kernels(engine, errs, card_name):
            "three": three,
            "K2_gather16": lambda: cases["K2_gather16"][0](salt),
            "K3_zero": lambda: cases["K3_zero"][0](salt),
-           "library_gather": lambda: torch.gather(k1.tab, 1, lib_idx)}
+           "library_gather": lambda: torch.gather(k1.tab, 1, lib_idx),
+           "library_gather16": lambda: torch.gather(lib16_tab, 1, lib16_idx),
+           "library_fill": lambda: lib_fill.fill_(0x5A5A5A5A)}
     ms = time_in_turns(fns, 50, flush)
     plains = {name: (lambda p=cases[name][1]: p(salt))
               for name in DECODE_KERNELS}
@@ -700,6 +738,10 @@ def time_kernels(engine, errs, card_name):
     out[0]["empty_launch_blocks"] = k1_blocks
     out[0]["library_ms"] = ms["library_gather"]
     out[0]["library_call"] = LIBRARY_GATHER
+    out[1]["library_ms"] = ms["library_gather16"]
+    out[1]["library_call"] = LIBRARY_GATHER16
+    out[2]["library_ms"] = ms["library_fill"]
+    out[2]["library_call"] = LIBRARY_FILL
     out.append({
         "name": FUSED,
         "route": "cuda",
@@ -726,6 +768,289 @@ def time_kernels(engine, errs, card_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# X1 (the fused ladder unpack) and X2 (the EF decode)
+# ---------------------------------------------------------------------------
+
+
+def x1_edge_classes(device, seed: int = 0):
+    """LadderClasses of every ladder width, a pfor class of 300 blocks
+    (M = 3, so a class's words are no multiple of a block's 1024) and a
+    pforb class of 5 (M = 1) each, interleaved as an engine's: fields at
+    their maximum, bit 31 in every word's top field, bases near 2^32 so
+    that base + field + salt wraps."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    rng = np.random.default_rng(seed)
+    classes = []
+    for w in ud._LADDER:
+        for rows, base in ((300, False), (5, True)):
+            v = rng.integers(0, 1 << w, (rows, 256), dtype=np.uint64)
+            v[:, ::7] = (1 << w) - 1
+            v[:, 32 // w - 1 :: 32 // w] |= 1 << (w - 1)
+            wT = ud._u32_tensor(ud._lane_major(ud._pack_w(
+                v.astype(np.uint32), w)), device)
+            bT = None
+            if base:
+                b = rng.integers(0, 1 << 32, rows, dtype=np.uint64)
+                b[:3] = (MASK, 1 << 31, 0)
+                bT = ud._u32_tensor(ud._lane_major(
+                    b.astype(np.uint32)[:, None])[0], device)
+            classes.append((w, wT, bT))
+    return ud.LadderClasses(classes, torch.device(device))
+
+
+def x1_edge_rows(device, seed: int = 1):
+    """X1's rows entry input: every ladder width, 1 to 10 rows (one width
+    with a single row), words with bit 31 set."""
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, w in enumerate(ud._LADDER):
+        rows = 1 if i == 3 else int(rng.integers(2, 11))
+        words = rng.integers(0, 1 << 32, (rows, ud._row_words(w)),
+                             dtype=np.uint64)
+        words[:, ::3] |= 1 << 31
+        out[w] = ud._u32_tensor(words, device)
+    return out
+
+
+def check_x1(lcs, packs) -> dict:
+    """X1 equal to its plain version on the card under torch.equal: every
+    LadderClasses of ``lcs`` for every salt, every rows input of
+    ``packs``; return {entry: max |kernel - plain|} over the u32
+    values."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    worst = {"X1_ladder_unpack": 0, "X1_ladder_rows": 0}
+    for label, lc in lcs:
+        for s in SALTS:
+            st = torch.tensor([s], dtype=torch.int64, device="cuda")
+            got = [o.clone() for o in ud.ladder_unpack(lc, st)]
+            want = lc.plain(st)
+            torch.cuda.synchronize()
+            for (w, _, bT), g, p in zip(lc.classes, got, want):
+                diff = u32_err(g, p)
+                worst["X1_ladder_unpack"] = max(worst["X1_ladder_unpack"],
+                                                diff)
+                if not torch.equal(g, p):
+                    fail(f"X1 disagrees with its plain version on {label}, "
+                         f"w={w} {'pforb' if bT is not None else 'pfor'}, "
+                         f"salt {s:#x} (max abs err {diff})")
+    for label, packed in packs:
+        got = ud.ladder_rows(packed)
+        torch.cuda.synchronize()
+        for w, a in packed.items():
+            want = ud.ladder_rows_plain(a, w)
+            diff = u32_err(got[w], want) if want.numel() else 0
+            worst["X1_ladder_rows"] = max(worst["X1_ladder_rows"], diff)
+            if not torch.equal(got[w], want):
+                fail(f"X1's rows entry disagrees with its plain version on "
+                     f"{label}, w={w} (max abs err {diff})")
+    return worst
+
+
+@contextlib.contextmanager
+def plain_x1():
+    """The ladder engines' chains with X1's plain version in the place of
+    the launch: the torch-op chain (a shift, a mask and an add a class),
+    for timing in turns beside X1."""
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    kernel = ud.ladder_unpack
+    ud.ladder_unpack = lambda lc, salt: lc.plain(salt)
+    try:
+        yield
+    finally:
+        ud.ladder_unpack = kernel
+
+
+def chain_in_turns(eng, runs: int, rounds: int = 2) -> dict:
+    """ms a run of ``eng.chain(runs)`` through X1 and through the torch-op
+    chain, in turns (X1, plain, X1, plain), CUDA events around each
+    chain after one warm-up chain of each; the final checksums equal."""
+    import torch
+
+    def timed():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        salt = eng.chain(runs)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / runs, int(salt.item())
+
+    int(eng.chain(2).item())
+    with plain_x1():
+        int(eng.chain(2).item())
+    ms = {"x1": [], "plain": []}
+    salts = set()
+    for _ in range(rounds):
+        t, s = timed()
+        ms["x1"].append(t)
+        salts.add(s)
+        with plain_x1():
+            t, s = timed()
+        ms["plain"].append(t)
+        salts.add(s)
+    if len(salts) != 1:
+        fail(f"the chain's checksum differs between X1 and the torch-op "
+             f"chain: {sorted(salts)}")
+    n = eng.plan.total_ints
+    out = {"runs": runs, "rounds": rounds}
+    for k, v in ms.items():
+        out[f"{k}_ms_per_run"] = v
+        out[f"{k}_ints_x_sec"] = n / (sum(v) / len(v) / 1e3)
+    return out
+
+
+def x1_bytes_ops(lc) -> tuple:
+    """(bytes, integer operations) of one X1 launch over ``lc``: the words
+    and bases read once, the salt, every output written once; a shift, a
+    mask and an add a value."""
+    outs = sum(o.numel() for o in lc.outs)
+    reads = sum(wT.numel() + (bT.numel() if bT is not None else 0)
+                for _, wT, bT in lc.classes)
+    return 4 * (reads + outs) + 8, 3 * outs
+
+
+def time_x1(lc, packed, errs, card_name) -> list:
+    """Kernels-line entries of X1's two entries at the main path's shapes
+    (the single_rect ladder engine's classes; the sharded pack of the
+    same stream), each timed in turns with its plain version."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
+    salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device="cuda")
+    ms = time_in_turns({
+        "X1_ladder_unpack": lambda: ud.ladder_unpack(lc, salt),
+        "X1_ladder_unpack_plain": lambda: lc.plain(salt),
+        "X1_ladder_rows": lambda: ud.ladder_rows(packed),
+        "X1_ladder_rows_plain": lambda: {
+            w: ud.ladder_rows_plain(a, w) for w, a in packed.items()},
+    }, 50, flush)
+    del flush
+    nbytes, ops = x1_bytes_ops(lc)
+    rows_out = sum(a.shape[0] * 256 for a in packed.values())
+    rows_bytes = 4 * (sum(a.numel() for a in packed.values()) + rows_out)
+    out = []
+    for name, b, o, replaces, shape in (
+            ("X1_ladder_unpack", nbytes, ops,
+             "dint_tpu/kernels/unpack_device.py:952 (_fns; _fns_base :983, "
+             "chained in UnpackEngine.timed_chain :1154)",
+             [[w, int(wT.shape[1]) * 128, bT is not None]
+              for w, wT, bT in lc.classes]),
+            ("X1_ladder_rows", rows_bytes, 2 * rows_out,
+             "dint_tpu/parallel/steps.py:319 (ladder_sharded_decode_step)",
+             [[w, int(a.shape[0])] for w, a in packed.items()])):
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "dint_tpu_torch/kernels/csrc/ladder_unpack.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": errs[name],
+            "ms": ms[name], "plain_ms": ms[name + "_plain"],
+            **bound_entry(b, o / INT32_OPS_PER_S * 1e3, card_name),
+            "library_ms": None, "classes": shape,
+        })
+        log(f"{name} {ms[name] * 1e3:.2f} us (bound "
+            f"{out[-1]['bound_ms'] * 1e3:.2f} us, plain "
+            f"{ms[name + '_plain'] * 1e3:.1f} us)")
+    return out
+
+
+def x2_edge_arena(seed: int = 3):
+    """(u64 words, specs, values) of EF lists written by the port's
+    writer from a misaligned start: w = 0 (one value, a dense run), an
+    empty list, a high region inside one word, values with bit 31 set
+    (universes near 2^32), one list of many chunks beside short ones."""
+    from dint_tpu_torch.codecs import ef
+    from dint_tpu_torch.utils.bitio import BitBuilder
+
+    rng = np.random.default_rng(seed)
+    bb = BitBuilder()
+    bb.append_bits(0x15, 5)
+    specs, vals = [], []
+    for n, universe in ((1, 1), (64, 64), (3, 9), (0, 100), (2, 40),
+                        (7, (1 << 32) - 1), (1000, (1 << 31) + 77),
+                        (400_000, 900_000), (33, 1 << 20), (1, 1 << 31)):
+        v = np.zeros(0, np.uint64)
+        if n == universe:
+            v = np.arange(n, dtype=np.uint64)
+        elif n:
+            v = np.append(np.unique(rng.integers(
+                0, universe - 1, 2 * n, dtype=np.uint64))[: n - 1],
+                np.uint64(universe - 1))
+        specs.append((bb.size, universe, n))
+        if n:
+            ef.compact_elias_fano.write(bb, v, universe, n, ef.PARAMS)
+        vals.append(v)
+    return bb.words(), specs, vals
+
+
+def stream_values(data) -> np.ndarray:
+    """The single_rect stream's values (the collection's gaps, stream
+    order), decoded on the host by the native unit decoder."""
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.query import native_host
+    from dint_tpu_torch.tools import decode
+
+    stream, dict_file = data["single_rect_dint"]
+    arena, meta = stream_mod.load_stream(stream)
+    view = decode.load_dictionary("single_rect_dint", dict_file).decode_view()
+    lay = decode.units_from_meta(arena, meta, False)
+    return native_host.decode_units_flat(view, arena, lay.starts,
+                                         lay.byte_lens, lay.n, lay.ctx,
+                                         lay.b_bits)
+
+
+def shard_pack_on_card(flat: np.ndarray) -> dict:
+    """``steps.ladder_shard_pack`` of ``flat`` for one rank, its classes
+    on the card: what the sharded step's X1 launch reads."""
+    from dint_tpu_torch.kernels import unpack_device as ud
+    from dint_tpu_torch.parallel import steps
+
+    packed, _, _, _ = steps.ladder_shard_pack(flat, 1)
+    return {w: ud._u32_tensor(a[0], "cuda") for w, a in packed.items()}
+
+
+def check_x2(label: str, tens) -> int:
+    """X2 equal to its plain version on the card under torch.equal, on
+    the uploaded tensors ``tens``; return max |kernel - plain|."""
+    import torch
+
+    from dint_tpu_torch.codecs import ef_device
+
+    got = ef_device.decode_tensors(tens)
+    want = ef_device.decode_tensors_plain(tens)
+    torch.cuda.synchronize()
+    diff = u32_err(got, want) if want.numel() else 0
+    if not torch.equal(got, want):
+        fail(f"X2 disagrees with its plain version on {label} "
+             f"(max abs err {diff})")
+    return diff
+
+
+def check_x2_edges() -> int:
+    """Phase 3's X2 check: the edge arena on the card, against the plain
+    version and against the values written."""
+    from dint_tpu_torch.codecs import ef, ef_device
+
+    words, specs, vals = x2_edge_arena()
+    prep = ef_device.prepare(words, specs, ef.PARAMS)
+    tens = ef_device.upload(prep, "cuda")
+    diff = check_x2("the edge arena", tens)
+    got = ef_device.decode_tensors(tens).cpu().numpy().view(np.uint32)
+    if not np.array_equal(got, np.concatenate(vals).astype(np.uint32)):
+        fail("X2 on the edge arena differs from the values written")
+    return diff
+
+
 def require_fused(counts, path: str, alone=()) -> None:
     """The engines of ``path`` ran the fused launch: it was launched,
     every class body ran in it, and no class kernel but those of
@@ -745,9 +1070,21 @@ def require_fused(counts, path: str, alone=()) -> None:
                  f"the {path} path")
 
 
+def require_x1(counts, path: str, want: int) -> None:
+    """``path`` launched X1 exactly ``want`` times (one a chained run and
+    one a whole decode); on the CPU (a rehearsal) none."""
+    import torch
+
+    got = counts[X1]
+    if got != (want if torch.cuda.is_available() else 0):
+        fail(f"{got} X1 launches on the {path} path, not {want}")
+
+
 def drive_main_path(data, base, runs: int, device):
-    """decode_stream for both types with the full collection check;
-    return ({type: record}, {type: launch counts})."""
+    """decode_stream for both types with the full collection check,
+    through the gather image (the fused class launch) and through the
+    ladder image (X1); return ({type: record}, {type: launch counts}),
+    the ladder's under ``<type>/ladder``."""
     from dint_tpu_torch.tools import decode
 
     recs, counts = {}, {}
@@ -767,6 +1104,18 @@ def drive_main_path(data, base, runs: int, device):
             fail(f"{t}: {counts[t][FUSED]} fused launches for {runs} runs, "
                  f"not {2 * runs + 1}")
         recs[t] = rec
+    for t in TYPES:
+        stream, dict_file = data[t]
+        key = f"{t}/ladder"
+        reset_launch_counts()
+        rec = decode.decode_stream(t, stream, dict_file, runs=runs,
+                                   check_collection=base + ".docs",
+                                   engine="ladder", device=device)
+        counts[key] = launch_counts()
+        if rec.get("check") != "ok":
+            fail(f"{key}: collection check did not pass")
+        require_x1(counts[key], f"decode ({key})", 2 * runs + 1)
+        recs[key] = rec
     return recs, counts
 
 
@@ -856,27 +1205,60 @@ def drive_bench_path(seed: int):
     require_fused(counts, "bench")
     if counts["K5_store_tile"] <= 0:
         fail("K5_store_tile was never launched on the bench path")
+    # the two ladder legs: a warm-up and a timed chain, and one whole
+    # decode, each
+    require_x1(counts, "bench", 2 * (2 * RUNS + 1))
     return rec, legs, counts
 
 
-def profile_ladder(stream: str, dict_file: str, card_name: str,
-                   trace_path: str):
-    """Device-busy time of a chained ladder run against its bytes bound
-    (the image read once, 4 B an int written once)."""
+def ladder_decoder(stream: str, dict_file: str, type_name: str):
+    """The ladder image of a DINT stream on the card
+    (``tools.decode.LadderStreamDecoder``)."""
     from dint_tpu_torch.index import stream as stream_mod
     from dint_tpu_torch.tools import decode
 
     arena, meta = stream_mod.load_stream(stream)
-    view = decode.load_dictionary("single_rect_dint", dict_file).decode_view()
-    dec = decode.LadderStreamDecoder(arena, meta, view, False, device="cuda")
-    prof = profile_device(lambda: dec.engine.chain(LADDER_PROFILE_RUNS),
-                          LADDER_PROFILE_RUNS, trace_path)
+    view = decode.load_dictionary(type_name, dict_file).decode_view()
+    return decode.LadderStreamDecoder(arena, meta, view,
+                                      type_name.startswith("multi"),
+                                      device="cuda")
+
+
+def profile_ladder(data, card_name: str, trace_path: str):
+    """Device-busy time of a chained ladder run of the single_rect image
+    against its bytes bound (the image read once, 4 B an int written
+    once), through X1 and through the torch-op chain; then both DINT
+    ladder images chained in turns, X1 beside the torch-op chain."""
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    dec = ladder_decoder(*data["single_rect_dint"], "single_rect_dint")
+    on_card = int(dec.engine.chain(3).item())
+    on_host = int(ud.UnpackEngine(dec.engine.plan, device="cpu")
+                  .chain(3).item())
+    if on_card != on_host:
+        fail(f"ladder chain salt {on_card:#x} on the card, {on_host:#x} on "
+             "the host")
+    out = {"chain_salt": on_card}
+    for key in ("x1", "plain"):
+        with plain_x1() if key == "plain" else contextlib.nullcontext():
+            prof = profile_device(
+                lambda: dec.engine.chain(LADDER_PROFILE_RUNS),
+                LADDER_PROFILE_RUNS, trace_path.replace(".json",
+                                                        f".{key}.json"))
+        out[key] = prof
     nbytes = dec.plan_bytes + 4 * dec.engine.plan.total_ints
-    prof.update({"image_bytes": dec.plan_bytes,
-                 "classes": [[w, int(a0.shape[1]) * 128]
-                             for _, w, a0, _ in dec.engine._dev],
-                 "bound_ms_per_run": nbytes / hbm_rate(card_name) * 1e3})
-    return prof
+    out.update({"image_bytes": dec.plan_bytes,
+                "classes": [[w, int(a0.shape[1]) * 128]
+                            for _, w, a0, _ in dec.engine._dev],
+                "bound_ms_per_run": nbytes / hbm_rate(card_name) * 1e3})
+    del dec
+    out["turns"] = {}
+    for t in TYPES:
+        dec = ladder_decoder(*data[t], t)
+        out["turns"][t] = chain_in_turns(dec.engine, LADDER_TURN_RUNS)
+        log(f"ladder chain {t} in turns: {out['turns'][t]}")
+        del dec
+    return out
 
 
 K5_SHAPES = ((1024, 1024), (3000, 1000), (1001, 7), (96, 96))  # whole tiles
@@ -1113,10 +1495,13 @@ def ablate_phases(stream: str, dict_file: str, card_name: str):
 
 def kernel_modules():
     """The modules whose wrappers count their launches."""
-    from dint_tpu_torch.kernels import decode_local, decode_pallas, store_probe
+    from dint_tpu_torch.codecs import ef_device
+    from dint_tpu_torch.kernels import (decode_local, decode_pallas,
+                                        store_probe, unpack_device)
     from dint_tpu_torch.query import device_serve
 
-    return decode_local, device_serve, store_probe, decode_pallas
+    return (decode_local, device_serve, store_probe, decode_pallas,
+            unpack_device, ef_device)
 
 
 def reset_launch_counts() -> None:
@@ -1859,22 +2244,38 @@ def zoo_phases(base: str, smi: str, device="cuda"):
     keys = ("ints_x_sec", "ns_x_int", "runs", "plan_bytes", "cold_start_s",
             "check")
     types = {}
-    reset_launch_counts()
+    counts = {}
     for t in common.VROOM_ZOO:
         n_ints = None
         entry = {"stream_bytes": os.path.getsize(paths[t])}
         for wire, runs in ((False, ZOO_RUNS), (True, ZOO_WIRE_RUNS)):
             if wire and t not in decode.WIRE_ENGINES:
                 continue
+            reset_launch_counts()
             rec = decode.decode_zoo_device(t, paths[t], runs,
                                            base + ".docs", wire=wire,
                                            device=device)
+            c = launch_counts()
+            counts = add_counts(counts, c)
             if rec.get("check") != "ok":
                 fail(f"zoo {t} (wire={wire}): collection check did not pass")
+            # the ladder image and optpfor's folded classes: X1, one launch
+            # a chained run and one for the whole decode; the other wire
+            # engines keep their torch ops
+            x1_path = not wire or t == "optpfor"
+            require_x1(c, f"zoo {t} (wire={wire})",
+                       2 * runs + 1 if x1_path else 0)
             n_ints = int(rec["num_integers"])
             r = {k: rec[k] for k in keys}
             r["image_bytes_per_int"] = int(rec["plan_bytes"]) / n_ints
+            r["launches"] = {k: v for k, v in c.items() if v}
             entry["wire" if wire else "ladder"] = r
+            torch.cuda.empty_cache()
+        if device != "cpu":
+            arena, meta = stream_mod.load_stream(paths[t])
+            eng, _ = decode.zoo_device_engine(t, arena, meta, False, device)
+            entry["ladder"]["turns"] = chain_in_turns(eng, ZOO_TURN_RUNS)
+            del eng
             torch.cuda.empty_cache()
         entry["num_integers"] = n_ints
         entry["stream_bpi"] = 8 * entry["stream_bytes"] / n_ints
@@ -1882,7 +2283,6 @@ def zoo_phases(base: str, smi: str, device="cuda"):
         log(f"zoo {t}: ladder {int(entry['ladder']['ints_x_sec']) / 1e9:.1f} "
             f"G ints/s" + (f", wire {int(entry['wire']['ints_x_sec']) / 1e9:.1f}"
                            f" G ints/s" if "wire" in entry else ""))
-    counts = launch_counts()
     profiles = {}
     for t, wire in ZOO_PROFILED:
         arena, meta = stream_mod.load_stream(paths[t])
@@ -1895,7 +2295,7 @@ def zoo_phases(base: str, smi: str, device="cuda"):
         torch.cuda.empty_cache()
     return {"types": types, "profiles": profiles, "data_s": data_s,
             "encode_all_s": enc_s, "paths": paths,
-            "kernel_launches": sum(counts.values()), "nvidia_smi": smi}
+            "launches": counts, "nvidia_smi": smi}
 
 
 # ---------------------------------------------------------------------------
@@ -1946,7 +2346,9 @@ def sharded_steps_rank(rank, world, device, blocks, packed, counts, small):
     hist, sel = steps.stats_training_step(tb, n_buckets=STATS_BUCKETS)
     pk = {w: up(a[rank]) for w, a in packed.items()}
     ct = {w: int(c[rank]) for w, c in counts.items()}
+    reset_launch_counts()
     louts, total = steps.ladder_sharded_decode_step(pk, ct)
+    launches = launch_counts()
     cand, lists = up(small["cand"]), up(small["lists"][rank])
     valid = torch.ones(lists.shape[0], dtype=torch.bool, device=device)
     parts = up(small["parts"][rank])
@@ -1975,6 +2377,7 @@ def sharded_steps_rank(rank, world, device, blocks, packed, counts, small):
     return {"hist": hist, "sel": sel,
             "ladder": {w: v[: ct[w]] for w, v in louts.items()},
             "ladder_total": total, "small": outs, "ms": ms, "profile": prof,
+            "launches": launches,
             "backend": torch.distributed.get_backend()}
 
 
@@ -1986,25 +2389,17 @@ def sharded_steps_phase(data, base: str, device="cuda"):
     against the source and UnpackEngine), and the dry run's AND and
     top-k steps at its shapes (against numpy).  Returns the record."""
     from dint_tpu_torch.config import TARGET_SIZES
-    from dint_tpu_torch.index import stream as stream_mod
     from dint_tpu_torch.kernels import unpack_device
     from dint_tpu_torch.parallel import dist as pdist
     from dint_tpu_torch.parallel import dryrun, steps
-    from dint_tpu_torch.query import native_host
-    from dint_tpu_torch.tools import common, decode
+    from dint_tpu_torch.tools import common
 
     t0 = time.perf_counter()
     gaps, _ = common.gap_lists_of(base + ".docs")
     blocks = np.concatenate([g[: g.shape[0] // 256 * 256].reshape(-1, 256)
                              for g in gaps if g.shape[0] >= 256])
     source = np.concatenate(gaps)
-    stream, dict_file = data["single_rect_dint"]
-    arena, meta = stream_mod.load_stream(stream)
-    view = decode.load_dictionary("single_rect_dint", dict_file).decode_view()
-    lay = decode.units_from_meta(arena, meta, False)
-    flat = native_host.decode_units_flat(view, arena, lay.starts,
-                                         lay.byte_lens, lay.n, lay.ctx,
-                                         lay.b_bits)
+    flat = stream_values(data)
     if not np.array_equal(flat, source):
         fail("the single_rect stream's values are not the collection's gaps")
     packed, counts, order, (toff, tail) = steps.ladder_shard_pack(flat, 1)
@@ -2041,6 +2436,10 @@ def sharded_steps_phase(data, base: str, device="cuda"):
     del eng
     if res["ladder_total"] != toff:
         fail(f"ladder count {res['ladder_total']} != {toff}")
+    # the step's classes in one launch of X1's rows entry (none on the CPU)
+    if res["launches"][X1_ROWS] != (device == "cuda"):
+        fail(f"{res['launches'][X1_ROWS]} launches of X1's rows entry in "
+             "one sharded ladder step, not one")
     out = res["small"]
     cand, lists = small["cand"], small["lists"][0]
     want_and = np.stack([np.isin(cand[q], lists[q]) for q in range(4)])
@@ -2061,6 +2460,7 @@ def sharded_steps_phase(data, base: str, device="cuda"):
                                                                    + tail.size),
         "ladder_classes": {int(w): int(c[0]) for w, c in counts.items()},
         "step_ms": res["ms"], "profile": res["profile"], "prep_s": prep_s,
+        "launches": res["launches"],
         "ranks_s": ranks_s,
         "check_s": check_s,
     }
@@ -2409,9 +2809,15 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
     docs, _, _ = read_collection(base)
     L = idx.num_lists
     dec = EFTermDecoder(idx, device=device, device_ef=True)
+    reset_launch_counts()
     t0 = time.perf_counter()
     got = dec.decode_docids(range(L))
     card_s = time.perf_counter() - t0
+    decoder_counts = launch_counts()
+    # one decode_lists call for every list: one X2 call (none on the CPU)
+    if decoder_counts[X2] != (device == "cuda"):
+        fail(f"{decoder_counts[X2]} X2 calls decoding the ef index's lists, "
+             "not one")
     t0 = time.perf_counter()
     host = [idx.list_docids(t) for t in range(L)]
     host_s = time.perf_counter() - t0
@@ -2424,31 +2830,69 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
     for t in range(L):
         _, n, pos = idx._list_header(t)
         specs.append((pos, idx.num_docs, n))
+    # decode_lists' parts on the host clock, each ending in a sync
+    split = {}
     t0 = time.perf_counter()
     prep = ef_device.prepare(idx.docs.words, specs, idx.params)
-    prep_s = time.perf_counter() - t0
+    split["prepare_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     tens = ef_device.upload(prep, device)
     torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
+    split["upload_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = ef_device.decode_tensors(tens)
+    torch.cuda.synchronize()
+    split["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = flat.cpu().numpy().view(np.uint32)
+    split["download_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ends = np.cumsum(prep["geo"][0])
+    lists = [v.astype(np.uint64) for v in np.split(flat, ends[:-1])]
+    split["split_s"] = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(lists, host)):
+        fail("ef_device's parts, run one by one, differ from the host decode")
     total, nwords = prep["sizes"]
-    flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
-    ms = time_ms(lambda: ef_device.decode_tensors(tens), EF_DEVICE_ITERS,
-                 flush)
-    del flush
+    err = check_x2("the ef index's lists", tens) if device == "cuda" else 0
     nbytes = prep["words"].nbytes + 4 * total
-    prof = profile_device(lambda: ef_device.decode_tensors(tens), 1,
-                          os.path.join(CACHE, "ef_device_trace.json"))
-    del tens
+    kernel = {"name": X2, "route": "cuda",
+              "source": "dint_tpu_torch/kernels/csrc/ef_decode.cu",
+              "replaces": "dint_tpu/codecs/ef_device.py:37 (_decode_fn)",
+              "launches": 0, "max_abs_err": err, "ms": None,
+              "plain_ms": None,
+              # about twelve integer operations an output and eight a
+              # high word (two passes)
+              **bound_entry(nbytes, (12 * total + 8 * nwords)
+                            / INT32_OPS_PER_S * 1e3, card_name),
+              "library_ms": None, "lists": L, "chunks": int(
+                  prep["chunks"].shape[0])}
+    prof = {}
+    if device == "cuda":
+        flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
+        ms = time_in_turns({
+            "x2": lambda: ef_device.decode_tensors(tens),
+            "plain": lambda: ef_device.decode_tensors_plain(tens)},
+            EF_DEVICE_ITERS, flush)
+        del flush
+        kernel["ms"], kernel["plain_ms"] = ms["x2"], ms["plain"]
+        for key, fn, runs in (("x2", ef_device.decode_tensors, 10),
+                              ("plain", ef_device.decode_tensors_plain, 1)):
+            prof[key] = profile_device(
+                lambda fn=fn, runs=runs: [fn(tens) for _ in range(runs)],
+                runs, os.path.join(CACHE, f"ef_device_trace.{key}.json"))
+    del tens, flat
     torch.cuda.empty_cache()
     out = {"lists": L, "ints": total, "high_words": nwords,
            "word_bytes": int(prep["words"].nbytes),
            "decoder_card_s": card_s, "host_loop_s": host_s,
-           "prepare_s": prep_s, "upload_s": upload_s, "device_ms": ms,
-           "device_ints_x_sec": total / (ms / 1e3),
+           "decode_lists_split": split, "device_ms": kernel["ms"],
+           "plain_ms": kernel["plain_ms"],
+           "device_ints_x_sec": total / (kernel["ms"] / 1e3)
+           if kernel["ms"] else None,
            "host_ints_x_sec": total / host_s,
-           "bound_ms": nbytes / hbm_rate(card_name) * 1e3,
-           "bound_bytes": nbytes, "profile": prof}
+           "bound_ms": kernel["bound_ms"],
+           "bound_bytes": nbytes, "profile": prof,
+           "decoder_launches": decoder_counts}
     log(f"ef_device: {out}")
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2458,6 +2902,8 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
     counts = launch_counts()
     if counts["K4_block_copy"] or counts[FUSED]:
         fail(f"ef serving launched K4 or the class kernels: {counts}")
+    if device == "cuda" and counts[X2] <= 0:
+        fail("tools.queries ef --device-ef never launched X2")
     for op in RANKED_OPS:
         if "engine_variant" in recs[op] or "blocks_kept" in recs[op]:
             fail(f"ef {op} took the fused store or pruned: {recs[op]}")
@@ -2488,6 +2934,9 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
         "tool_s": tool_s, "launches": counts, "max_rel_score_err": worst,
         "total_results": totals,
     })
+    kernel["launches_by_path"] = {"ef": decoder_counts[X2] + counts[X2]}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
+    out["kernel"] = kernel
     torch.cuda.empty_cache()
     return out
 
@@ -2936,6 +3385,21 @@ def main(argv=None) -> int:
                           PROFILE_RUNS, os.path.join(CACHE, "chain_trace.json"))
     print(json.dumps({"profile": prof}), flush=True)
     del dec
+    # X1 against its plain version in both layouts (the bench ladder
+    # image, the sharded pack of the same stream, every width on edge
+    # inputs), X2 on the EF edge arena; X1 timed at the main path's
+    # shapes (X2 is timed in phase 23, on the ef index)
+    lad = ladder_decoder(*data["single_rect_dint"], "single_rect_dint")
+    packed = shard_pack_on_card(stream_values(data))
+    x_errs = check_x1(
+        [("the bench ladder image", lad.engine._x1),
+         ("the edge classes", x1_edge_classes("cuda"))],
+        [("the bench stream's sharded pack", packed),
+         ("the edge rows", x1_edge_rows("cuda"))])
+    x_errs[X2] = check_x2_edges()
+    log(f"X1 and X2 equal their plain versions on the card: {x_errs}")
+    x1_kernels = time_x1(lad.engine._x1, packed, x_errs, kind)
+    del lad, packed
     torch.cuda.empty_cache()
 
     mark(t_start, "phase 3")
@@ -2943,8 +3407,7 @@ def main(argv=None) -> int:
     # 4. the decode path, launches counted from zero
     drop_plan_caches(CACHE)
     recs, counts = drive_main_path(data, base, RUNS, "cuda")
-    for t in TYPES:
-        r = recs[t]
+    for t, r in recs.items():
         print(json.dumps({
             "type": t, "ints_x_sec": r["ints_x_sec"],
             "ns_x_int": r["ns_x_int"], "num_integers": r["num_integers"],
@@ -2961,7 +3424,7 @@ def main(argv=None) -> int:
     bench_rec, bench_legs, bench_counts = drive_bench_path(args.seed)
     print(json.dumps({"bench": {**bench_rec, "launches": bench_counts,
                                 "nvidia_smi": smi}}), flush=True)
-    ladder_prof = profile_ladder(*data["single_rect_dint"], kind,
+    ladder_prof = profile_ladder(data, kind,
                                  os.path.join(CACHE, "ladder_trace.json"))
     print(json.dumps({"ladder_profile": ladder_prof}), flush=True)
     torch.cuda.empty_cache()
@@ -3126,7 +3589,8 @@ def main(argv=None) -> int:
         fail("the tools path never launched the fused class launch")
 
     def by_path(key):
-        return {"decode": sum(c[key] for c in counts.values()),
+        return {"decode": sum(c[key] for t, c in counts.items()
+                              if t in TYPES),
                 "bench": bench_counts[key], "ablate": ablate_counts[key],
                 "serve": serve["launches"][key],
                 "sharded_serve": sharded_serve["launches"][key],
@@ -3151,7 +3615,19 @@ def main(argv=None) -> int:
                               "block_serve": block["k4_launches"]}
     k4["launches"] += block["k4_launches"]
     k4["max_abs_err"] = max(k4["max_abs_err"], block["k4_max_abs_err"])
-    kernels += [k4, k5, *onehot]
+    x1_kernels[0]["launches_by_path"] = {
+        "decode": sum(counts[f"{t}/ladder"][X1] for t in TYPES),
+        "bench": bench_counts[X1], "zoo": zoo["launches"][X1]}
+    x1_kernels[1]["launches_by_path"] = {
+        "sharded": sharded_steps["launches"][X1_ROWS]}
+    x2 = ef_rec.pop("kernel")
+    x2["max_abs_err"] = max(x2["max_abs_err"], x_errs[X2])
+    for k in x1_kernels:
+        k["launches"] = sum(k["launches_by_path"].values())
+    for k in (*x1_kernels, x2):
+        if k["launches"] <= 0:
+            fail(f"{k['name']} was never launched on a main path")
+    kernels += [k4, k5, *onehot, *x1_kernels, x2]
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
                "chain_salt": salt, "profile": prof, "bench": bench_rec,

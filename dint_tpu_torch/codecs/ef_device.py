@@ -1,12 +1,22 @@
-"""Whole-list Elias-Fano decode on ``device`` (torch ops).
+"""Whole-list Elias-Fano decode on ``device``.
 
 The port of ``dint_tpu/codecs/ef_device.py``.  Decode semantics of
 compact_elias_fano (compact_elias_fano.hpp:138-417, materialized
 whole-list like ``codecs/ef.py::compact_elias_fano.decode_all``):
 ``value[i] = ((select_1(i) - i - 1) << w) | low[i]``.
 
-Every list of a call decodes in one flat pass of torch ops over one
-upload of the u32 words (no grouping by shape, no padding):
+Every list of a call decodes in one pass over one upload of the u32
+words (no grouping by shape, no padding), into one int32 tensor holding
+the u32 values in list order.  On the card that pass is X2, the hand
+kernel ``kernels/csrc/ef_decode.cu`` (``decode_tensors``): ``prepare``
+cuts each list's high region into chunks of at most ``CHUNK_WORDS``
+words, a first launch counts each chunk's ones, a cumulative sum over
+one int a chunk gives each chunk's first output, and a second launch
+enumerates every word's ones with their low fields, a thread a word.
+
+``decode_tensors_plain`` is its plain version, which the CPU runs, as
+torch ops in int64 (values below 2**32, every right shift acts on
+non-negative numbers, so no shift is arithmetic):
 
 * LOW fields: output i of a list reads bits ``lbo + i*w`` .. ``+w`` with
   a gather of the two u32 words that hold them, joined in int64 and
@@ -18,9 +28,6 @@ upload of the u32 words (no grouping by shape, no padding):
   L, position i) is the (g - word rank)-th one of the word that
   ``searchsorted`` finds for g, and a five-step binary search over
   popcounts of the word's halves finds that bit.
-
-All arithmetic on the u32 data is int64 (values below 2**32, every
-right shift acts on non-negative numbers), so no shift is arithmetic.
 """
 
 from __future__ import annotations
@@ -31,9 +38,12 @@ import numpy as np
 import torch
 
 from ..backend import resolve_device
+from ..kernels.decode_local import _to_i32
 from . import ef as ef_mod
 
 _M32 = 0xFFFFFFFF
+_X2_LIB = "libdintef.so"
+CHUNK_WORDS = 256  # high-region words of an X2 chunk (a block a chunk)
 
 
 def prepare(words: np.ndarray, specs: List[Tuple[int, int, int]],
@@ -54,18 +64,27 @@ def prepare(words: np.ndarray, specs: List[Tuple[int, int, int]],
                      of.higher_bits_offset, of.higher_bits_length)
     n, hbo, hbl = geo[0], geo[3], geo[4]
     hwc = np.where(n > 0, ((hbo + hbl - 1) >> 5) - (hbo >> 5) + 1, 0)
+    # X2's chunks: (list, first high word), CHUNK_WORDS words at most,
+    # none spanning two lists
+    per = -(-hwc // CHUNK_WORDS)
+    c_list = np.repeat(np.arange(L, dtype=np.int64), per)
+    c_first = np.cumsum(per) - per
+    c_w0 = ((hbo >> 5)[c_list]
+            + (np.arange(c_list.shape[0]) - c_first[c_list]) * CHUNK_WORDS)
     # one zero guard word: a low field may read the word after the last
     return {"words": np.concatenate([w32, np.zeros(1, "<u4")]).view("<i4"),
             "geo": geo, "hwc": hwc,
+            "chunks": np.stack([c_list, c_w0], axis=1),
+            "out_start": np.cumsum(n) - n,
             "sizes": (int(n.sum()), int(hwc.sum()))}
 
 
 def upload(prep: Dict, device) -> Dict:
-    """The words and the geometry as tensors on ``device``; the two
-    output sizes stay host ints, so the decode needs no sync."""
+    """The words, the geometry and the chunks as tensors on ``device``;
+    the two output sizes stay host ints, so the decode needs no sync."""
     d = resolve_device(device)
     out = {k: torch.from_numpy(prep[k]).to(d)
-           for k in ("words", "geo", "hwc")}
+           for k in ("words", "geo", "hwc", "chunks", "out_start")}
     out["sizes"] = prep["sizes"]
     return out
 
@@ -89,9 +108,9 @@ def _select_in_word(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def decode_tensors(t: Dict) -> torch.Tensor:
-    """Device half: every list's values, concatenated in list order
-    (int64, values below 2**32)."""
+def decode_tensors_plain(t: Dict) -> torch.Tensor:
+    """X2's plain version: every list's values, concatenated in list
+    order, as int32 holding the u32 bits (torch ops in int64)."""
     words, hwc = t["words"], t["hwc"]
     n, w, lbo, hbo, hbl = t["geo"].unbind(0)
     total, nw = t["sizes"]
@@ -131,7 +150,68 @@ def decode_tensors(t: Dict) -> torch.Tensor:
     r = g - (c_incl[wsel] - pc[wsel])
     rel = bit0[wsel] + _select_in_word(masked[wsel], r) - hbo[lid]
     high = rel - i - 1
-    return (high << wl) | low
+    return _to_i32((high << wl) | low)
+
+
+def decode_tensors(t: Dict) -> torch.Tensor:
+    """X2, the device half: every list's values, concatenated in list
+    order, as int32 holding the u32 bits.  On a CUDA device two launches
+    of ``csrc/ef_decode.cu`` around a cumulative sum of one int a chunk
+    (or the call raises); on the CPU ``decode_tensors_plain``."""
+    name = "ef_decode"
+    words = t["words"]
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_tensors_plain(t)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    geo, chunks, out_start = t["geo"], t["chunks"], t["out_start"]
+    L = geo.shape[1]
+    C = chunks.shape[0]
+    for k, x, dtype, shape in (("words", words, torch.int32, None),
+                               ("geo", geo, torch.int64, (5, L)),
+                               ("chunks", chunks, torch.int64, (C, 2)),
+                               ("out_start", out_start, torch.int64, (L,))):
+        if x.dtype != dtype or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous {dtype} on "
+                             f"{dev}, got {x.dtype} on {x.device}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {k} must be {shape}, got "
+                             f"{tuple(x.shape)}")
+    total = t["sizes"][0]
+    out = torch.empty(total, dtype=torch.int32, device=dev)
+    if C == 0:
+        return out
+    from ..kernels import cuda_ext
+
+    lib = cuda_ext.lib(_X2_LIB)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.empty(C, dtype=torch.int32, device=dev)
+    cuda_ext.check(_X2_LIB, "dint_ef_count", lib.dint_ef_count(
+        words.data_ptr(), geo.data_ptr(), chunks.data_ptr(),
+        counts.data_ptr(), C, L, stream))
+    incl = torch.cumsum(counts, 0, dtype=torch.int64)
+    cuda_ext.check(_X2_LIB, "dint_ef_decode", lib.dint_ef_decode(
+        words.data_ptr(), geo.data_ptr(), chunks.data_ptr(),
+        incl.data_ptr(), counts.data_ptr(), out_start.data_ptr(),
+        out.data_ptr(), C, L, stream))
+    decode_tensors.launches += 1
+    return out
+
+
+decode_tensors.launches = 0
+
+KERNELS = {"X2_ef_decode": decode_tensors}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS.values():
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Calls of X2 that launched its two passes."""
+    return {k: w.launches for k, w in KERNELS.items()}
 
 
 def decode_lists(words: np.ndarray, specs: List[Tuple[int, int, int]],
@@ -142,6 +222,6 @@ def decode_lists(words: np.ndarray, specs: List[Tuple[int, int, int]],
     prep = prepare(words, specs, params)
     if not specs:
         return []
-    flat = decode_tensors(upload(prep, device)).cpu().numpy()
+    flat = decode_tensors(upload(prep, device)).cpu().numpy().view(np.uint32)
     ends = np.cumsum(prep["geo"][0])
     return [v.astype(np.uint64) for v in np.split(flat, ends[:-1])]

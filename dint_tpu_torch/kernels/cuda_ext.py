@@ -51,11 +51,26 @@ _SIGNATURES = {
         "dint_onehot_block": [_P, _P, _P, _P, _P, ctypes.c_int64, _P],
         "dint_onehot_group": [_P, _P, _P, _P, _P, ctypes.c_int64, _P],
     },
+    "libdintladder.so": {
+        # host class table, classes, salt, stream
+        "dint_ladder_unpack": [_P, ctypes.c_int, _P, _P],
+        # host class table, classes, stream
+        "dint_ladder_rows": [_P, ctypes.c_int, _P],
+    },
+    "libdintef.so": {
+        # words, geo, chunks, counts, C, L, stream
+        "dint_ef_count": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P],
+        # words, geo, chunks, incl, counts, out_start, out, C, L, stream
+        "dint_ef_decode": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                           ctypes.c_int64, _P],
+    },
 }
 _SOURCES = {"libdintgather.so": "decode_gather.cu",
             "libdintserve.so": "serve_gather.cu",
             "libdintprobe.so": "store_probe.cu",
-            "libdintonehot.so": "onehot_gather.cu"}
+            "libdintonehot.so": "onehot_gather.cu",
+            "libdintladder.so": "ladder_unpack.cu",
+            "libdintef.so": "ef_decode.cu"}
 LIBRARIES = tuple(_SOURCES)
 _libs = {}
 

@@ -1,6 +1,6 @@
 """Device bit-unpack engines for the ladder image and the zoo's wire
-formats, as PyTorch ops on the engine's device (the reference package's
-``kernels/unpack_device.py``, which has no hand-written kernel).
+formats on the engine's device (the reference package's
+``kernels/unpack_device.py``, whose per-class unpacks are XLA ops).
 
 The ladder image is codec-independent: at LOAD time the stream is
 host-decoded once, the flat value stream is cut into 256-value blocks,
@@ -12,12 +12,17 @@ At DECODE time each class is one broadcast shift and mask over its
 words (``_fns``), with the block minimum added back for base-relative
 classes (``_fns_base``).  The trailing partial block stays on the host
 as plan values.  ``plan_ladder`` builds this image for any zoo codec.
+On the card every ladder class of a run (``pfor`` and ``pforb``) decodes
+in ONE launch of X1, the hand kernel ``csrc/ladder_unpack.cu``
+(``ladder_unpack`` over the engine's ``LadderClasses``); ``_fns`` and
+``_fns_base`` are its plain version, which the CPU runs.  X1's second
+entry, ``ladder_rows``, decodes the sharded step's row-major classes.
 
 The wire-format engines keep a codec's own structure on the device:
 ``plan_optpfor`` (blocks by bit width; the engine folds the exceptions
 into the values at load and re-packs them at ladder widths),
 ``plan_qmx`` (one class row per QMX instance, unpacked by the width's
-static row shifts, ``_qmx_fns``), ``plan_simple16`` (one class per
+static row shifts, ``_qmx_fns``, torch ops), ``plan_simple16`` (one class per
 selector mode, ``Simple16Engine``) and ``plan_byteclass`` (every value's
 bytes in the dense array of its byte length, ``ByteClassEngine``).
 
@@ -533,6 +538,200 @@ def _kind_fns(kind: str, b: int):
     return _fns(b)
 
 
+# ---------------------------------------------------------------------------
+# X1: the fused ladder unpack (csrc/ladder_unpack.cu), one launch a run
+# ---------------------------------------------------------------------------
+
+_X1_LIB = "libdintladder.so"
+X1_MAX_CLASSES = 32
+X1_WORDS_PER_BLOCK = 1024  # 256 threads, four lane-major words each
+X1_ROWS_PER_BLOCK = 4  # rows entry: 256 threads, four values each
+
+
+def ladder_table(geometry, per_block: int) -> np.ndarray:
+    """X1's class table without its pointers: one row of eight int64 per
+    class, (src, base, out, a, b, block0, w, 0), for ``geometry`` [(w, a,
+    b, blocks)]: a class takes ``blocks`` blocks of the grid from
+    ``block0``, the running sum of the classes before it, which is how
+    a block of the launch finds its class.  The engine's layout has a =
+    M * 128 lanes a plane, b = W' * a words, ``per_block`` =
+    X1_WORDS_PER_BLOCK; the sharded rows have a = NBw rows, b = words a
+    row, ``per_block`` = X1_ROWS_PER_BLOCK."""
+    if len(geometry) > X1_MAX_CLASSES:
+        raise ValueError(f"X1 takes at most {X1_MAX_CLASSES} classes a "
+                         f"launch, got {len(geometry)}")
+    t = np.zeros((len(geometry), 8), np.int64)
+    block0 = 0
+    for i, (w, a, b, work) in enumerate(geometry):
+        if w not in _LADDER:
+            raise ValueError(f"X1: width {w} is not a ladder width")
+        t[i, 3:7] = (a, b, block0, w)
+        block0 += -(-int(work) // per_block)
+    return t
+
+
+def _x1_check(name: str, tensors, device) -> None:
+    for x in tensors:
+        if x.dtype != torch.int32 or x.device != device:
+            raise ValueError(f"{name}: every tensor must be int32 on "
+                             f"{device}, got {x.dtype} on {x.device}")
+        if device.type == "cuda" and (not x.is_contiguous()
+                                      or x.data_ptr() % 16):
+            raise ValueError(f"{name}: every tensor must be contiguous and "
+                             "16-byte aligned")
+
+
+class LadderClasses:
+    """The pfor/pforb width classes of one engine as X1 decodes them:
+    ``classes`` [(w, wT (W', M, 128) int32, bT (M, 128) int32 or None)] on
+    one device, their outputs ``outs`` [(W', vpw, M, 128) int32], views
+    of one buffer ``buf`` (class c from ``offsets[c]``) allocated once
+    and rewritten by every ``ladder_unpack``, and the class table.  The
+    object holds every tensor the table points at."""
+
+    def __init__(self, classes, device):
+        # the device as a tensor reports it (cuda:0 for "cuda")
+        self.device = torch.empty(0, device=device).device
+        device = self.device
+        self.classes = list(classes)
+        shapes = [(wT.shape[0], 32 // w, *wT.shape[1:])
+                  for w, wT, _ in self.classes]
+        sizes = [int(np.prod(sh)) for sh in shapes]
+        self.offsets = np.cumsum([0] + sizes)[:-1].astype(np.int64)
+        self.buf = torch.empty(sum(sizes), dtype=torch.int32, device=device)
+        # every class's numel is a multiple of 128: each view is aligned
+        self.outs = [self.buf[o : o + n].view(sh) for o, n, sh in
+                     zip(self.offsets.tolist(), sizes, shapes)]
+        geometry = []
+        for w, wT, bT in self.classes:
+            if wT.dim() != 3 or wT.shape[2] != 128:
+                raise ValueError(f"ladder_unpack: wT must be (W', M, 128), "
+                                 f"got {tuple(wT.shape)}")
+            if bT is not None and tuple(bT.shape) != tuple(wT.shape[1:]):
+                raise ValueError(f"ladder_unpack: bT must be "
+                                 f"{tuple(wT.shape[1:])}, got "
+                                 f"{tuple(bT.shape)}")
+            _x1_check("ladder_unpack", [wT] + ([bT] if bT is not None
+                                               else []), device)
+            P = wT.shape[1] * 128
+            geometry.append((w, P, wT.numel(), wT.numel()))
+        self.table = ladder_table(geometry, X1_WORDS_PER_BLOCK)
+        if device.type == "cuda":
+            for row, (_, wT, bT), out in zip(self.table, self.classes,
+                                             self.outs):
+                row[:3] = (wT.data_ptr(),
+                           bT.data_ptr() if bT is not None else 0,
+                           out.data_ptr())
+
+    def plain(self, salt: torch.Tensor) -> List[torch.Tensor]:
+        """X1's plain version: ``_fns``/``_fns_base`` class by class."""
+        s32 = _to_i32(salt.reshape(()) & _MASK)
+        return [(_fns(w)(wT, None, s32) if bT is None
+                 else _fns_base(w)(wT, bT, s32))
+                for w, wT, bT in self.classes]
+
+
+def ladder_unpack(lc: LadderClasses, salt: torch.Tensor) -> List[torch.Tensor]:
+    """X1: every class of ``lc`` unpacked into ``lc.outs`` with ``salt``
+    (a 1-element int64 tensor holding the u32 value) wrap-added; returns
+    ``lc.outs``.  On a CUDA device this is ONE launch of
+    ``dint_ladder_unpack`` (or the call raises); on the CPU the plain
+    version."""
+    name = "ladder_unpack"
+    if salt.dtype != torch.int64 or salt.numel() != 1:
+        raise ValueError(f"{name}: salt must be a 1-element int64 tensor")
+    if salt.device != lc.device:
+        raise ValueError(f"{name}: salt on {salt.device}, the classes on "
+                         f"{lc.device}")
+    if lc.device.type == "cpu":
+        for out, got in zip(lc.outs, lc.plain(salt)):
+            out.copy_(got)
+        return lc.outs
+    if lc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {lc.device}")
+    if not lc.classes:
+        return lc.outs
+    from . import cuda_ext
+
+    stream = torch.cuda.current_stream(lc.device).cuda_stream
+    rc = cuda_ext.lib(_X1_LIB).dint_ladder_unpack(
+        lc.table.ctypes.data, lc.table.shape[0], salt.data_ptr(), stream)
+    cuda_ext.check(_X1_LIB, "dint_ladder_unpack", rc)
+    ladder_unpack.launches += 1
+    return lc.outs
+
+
+def _row_words(w: int) -> int:
+    return -(-BLOCK_SIZE // (32 // w))
+
+
+def ladder_rows_plain(a: torch.Tensor, w: int) -> torch.Tensor:
+    """The rows entry's plain version for one width: (NBw, words_w)
+    int32 -> (NBw, 256) int32, value j of a row from word j // vpw at
+    shift (j % vpw) * w (the sharded step's broadcast shift and mask)."""
+    vpw = 32 // w
+    j = torch.arange(BLOCK_SIZE, device=a.device)
+    vals = a[:, j // vpw] >> ((j % vpw) * w).to(torch.int32)[None, :]
+    if w < 32:
+        vals = vals & ((1 << w) - 1)
+    return vals
+
+
+def ladder_rows(packed: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+    """X1's second entry, the sharded step's row-major layout: {w:
+    (NBw, words_w) int32 holding u32 words} -> {w: (NBw, 256) int32}.  On
+    a CUDA device ONE launch of ``dint_ladder_rows`` over every width (or
+    the call raises); on the CPU ``ladder_rows_plain``."""
+    name = "ladder_rows"
+    if not packed:
+        return {}
+    dev = next(iter(packed.values())).device
+    for w, a in packed.items():
+        if w not in _LADDER:
+            raise ValueError(f"{name}: width {w} is not a ladder width")
+        if a.dim() != 2 or a.shape[1] != _row_words(w):
+            raise ValueError(f"{name}: width {w} wants (rows, "
+                             f"{_row_words(w)}) words, got {tuple(a.shape)}")
+    _x1_check(name, list(packed.values()), dev)
+    if dev.type == "cpu":
+        return {w: ladder_rows_plain(a, w) for w, a in packed.items()}
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    outs = {w: torch.empty((a.shape[0], BLOCK_SIZE), dtype=torch.int32,
+                           device=dev) for w, a in packed.items()}
+    live = [w for w, a in packed.items() if a.shape[0]]
+    if not live:
+        return outs
+    table = ladder_table([(w, packed[w].shape[0], _row_words(w),
+                           packed[w].shape[0]) for w in live],
+                         X1_ROWS_PER_BLOCK)
+    for row, w in zip(table, live):
+        row[0], row[2] = packed[w].data_ptr(), outs[w].data_ptr()
+    from . import cuda_ext
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = cuda_ext.lib(_X1_LIB).dint_ladder_rows(
+        table.ctypes.data, table.shape[0], stream)
+    cuda_ext.check(_X1_LIB, "dint_ladder_rows", rc)
+    ladder_rows.launches += 1
+    return outs
+
+
+ladder_unpack.launches = 0
+ladder_rows.launches = 0
+
+KERNELS = {"X1_ladder_unpack": ladder_unpack, "X1_ladder_rows": ladder_rows}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS.values():
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: w.launches for k, w in KERNELS.items()}
+
+
 class UnpackEngine:
     """Runs one UnpackPlan on ``device`` (class-major outputs).
 
@@ -593,6 +792,12 @@ class UnpackEngine:
                     hi.numel() if hi is not None else 0)) * 4
         else:
             self._fold_optpfor(plan)
+        # the pfor/pforb classes decode in one X1 launch; qmx classes
+        # keep their torch ops
+        x1 = [i for i, d in enumerate(self._dev) if d[0] != "qmx"]
+        self._x1_pos = {i: k for k, i in enumerate(x1)}
+        self._x1 = LadderClasses([self._dev[i][1:] for i in x1],
+                                 self.device)
 
     def _fold_optpfor(self, plan: UnpackPlan) -> None:
         """optpfor: unpack every block on the host, fold the exception
@@ -645,15 +850,26 @@ class UnpackEngine:
         return a.reshape(a.shape[0] * a.shape[1], -1)[:n]
 
     def decode_classes(self) -> List[np.ndarray]:
-        salt = torch.zeros((), dtype=torch.int32, device=self.device)
+        salt = torch.zeros((), dtype=torch.int64, device=self.device)
+        x1 = ladder_unpack(self._x1, salt) if self._x1.classes else []
         outs = []
-        for (out_base, size), dev in zip(self._meta, self._dev):
-            kind, b, a0, a1 = dev
-            out = _kind_fns(kind, b)(a0, a1, salt)
+        for i, ((out_base, _), (kind, b, a0, a1)) in enumerate(
+                zip(self._meta, self._dev)):
+            out = (x1[self._x1_pos[i]] if i in self._x1_pos
+                   else _qmx_fns(b)(a0, a1, _to_i32(salt)))
             outs.append(self._reorder(kind, b,
                                       out.cpu().numpy().view(np.uint32),
                                       out_base.shape[0]))
         return outs
+
+    def _sample_index(self) -> torch.Tensor:
+        """Positions in X1's buffer of the chain's sample of each X1
+        class, ``out[:1, :1, :8]``: the first min(8, M) * 128 values of
+        the class's (0, 0) plane, which starts the class."""
+        idx = [np.arange(o, o + min(8, wT.shape[1]) * 128)
+               for o, (_, wT, _) in zip(self._x1.offsets, self._x1.classes)]
+        return torch.from_numpy(np.concatenate(
+            idx or [np.zeros(0, np.int64)])).to(self.device)
 
     def chain(self, runs: int) -> torch.Tensor:
         """``runs`` full decodes back to back from salt 1, every width
@@ -666,20 +882,30 @@ class UnpackEngine:
         pvals = torch.from_numpy(np.concatenate(
             [v for _, v in self.plan.partials] or [np.zeros(0, np.uint32)]
         ).astype(np.uint32).view(np.int32)).to(self.device)
-        fns = [_kind_fns(kind, b) for kind, b, _, _ in self._dev]
+        qmx = [d for i, d in enumerate(self._dev) if i not in self._x1_pos]
+        sample = self._sample_index() if self._x1.classes else None
         salt = torch.ones((), dtype=torch.int64, device=self.device)
         for _ in range(runs):
-            s32 = _to_i32(salt)
+            # the u32 salt's int32 bits (an int64 -> int32 conversion
+            # keeps the low 32 bits)
+            s32 = salt.to(torch.int32)
             samples = []
-            for fn, (_, _, a0, a1) in zip(fns, self._dev):
-                out = fn(a0, a1, s32)
-                samples.append(out[:1, :1, :8].reshape(-1))
+            if sample is not None:
+                # X1's one launch; the chain reads its sample before the
+                # next run's launch rewrites the buffer, on the same
+                # stream
+                ladder_unpack(self._x1, salt)
+                samples.append(torch.index_select(self._x1.buf, 0, sample))
+            for _, b, a0, a1 in qmx:
+                samples.append(_qmx_fns(b)(a0, a1, s32)[:1, :1, :8]
+                               .reshape(-1))
             # partial tails are hosted plan values; per run they
             # materialize on the device like every other value
             samples.append(pvals + s32)
-            samp = torch.cat(samples)
+            samp = torch.cat(samples) if len(samples) > 1 else samples[0]
             total = samp.sum(dtype=torch.int32).to(torch.int64)
-            salt = (total - salt * samp.numel()) & _MASK
+            salt = torch.sub(total, salt, alpha=samp.numel()).bitwise_and_(
+                _MASK)
         return salt
 
     def timed_chain(self, runs: int) -> float:

@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import BLOCK_SIZE, NUM_SELECTORS, TARGET_SIZES
+from ..kernels import unpack_device
 from ..query import device_batch
 
 _MASK32 = 0xFFFFFFFF
@@ -282,23 +283,15 @@ def ladder_sharded_decode_step(packed, counts, group=None):
     rank's slice of ``ladder_shard_pack``'s arrays; ``counts`` {width:
     this rank's valid block count}.  Every class decodes as one
     broadcast shift and mask: value j of a block sits whole in word
-    j // vpw at shift (j % vpw) * w, so the mask keeps only bits that a
-    logical shift would bring down.  The total decoded-int count is
+    j // vpw at shift (j % vpw) * w.  On the card every class of the
+    step is ONE launch of X1's rows entry
+    (``unpack_device.ladder_rows``); on the CPU its plain version, the
+    torch ops of ``ladder_rows_plain``.  The total decoded-int count is
     summed over the ranks.  Returns ({width: (NBw, 256) int32 holding
     u32}, total)."""
-    outs = {}
-    local = 0
-    dev = None
-    for w, a in packed.items():
-        dev = a.device
-        vpw = 32 // w
-        j = torch.arange(BLOCK_SIZE, device=dev)
-        sh = ((j % vpw) * w).to(torch.int32)
-        vals = a[:, j // vpw] >> sh[None, :]
-        if w < 32:
-            vals = vals & ((1 << w) - 1)
-        outs[w] = vals
-        local += int(counts[w]) * BLOCK_SIZE
+    outs = unpack_device.ladder_rows(packed)
+    local = sum(int(counts[w]) * BLOCK_SIZE for w in packed)
+    dev = next(iter(packed.values())).device if packed else None
     total = torch.tensor([local], dtype=torch.int64, device=dev)
     dist.all_reduce(total, group=group)
     return outs, int(total.item())
