@@ -12,6 +12,7 @@ of the batch encoder, the scale pipeline (tools.scale_test) and the
 single-device entry.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
+        [--k3-old SOURCE [--k3-old-scale INTS]] [--x2-old SOURCE]
 
 Run from the root of a checkout.  Phases, each fatal on failure:
 
@@ -38,7 +39,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    torch.profiler trace of 200 chained runs (device busy time and idle
    share a run); K2 and K3 also timed beside their library calls
    (``torch.gather`` on the int16 view of K2's table, ``fill_`` over K3's
-   output bytes); X1, the fused ladder unpack, against its plain version
+   output bytes); K3 alone at every n_out (128-1024) against its twin
+   for row counts that are no multiple of a block, with a guard row after
+   its output that it must leave as it was; the zero class alone in the
+   fused launch timed against its bytes bound; with ``--k3-old SOURCE``
+   (an earlier ``decode_gather.cu``, same C entries) that body's K3 and
+   fused launch held to their plain versions and timed in turns with the
+   shipped ones, and with ``--k3-old-scale INTS`` the fused launch and its
+   zero class of both bodies again at INTS requested postings
+   (``tools.scale_test``'s collection and stream, 1e8: 90,855,447
+   postings), held to the plain version and timed in turns; X1, the fused
+   ladder unpack, against its plain version
    under ``torch.equal`` in both layouts (the bench ladder image and the
    sharded pack of the same stream, and edge inputs of every ladder
    width: pfor and pforb, a lane grid no multiple of a block, one-row
@@ -172,10 +183,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 23. EF: every list of the ``ef`` index through ``EFTermDecoder(device=
     "cuda", device_ef=True)``, one X2 call, equal to the host decode and
     the collection; ``decode_lists``' parts (prepare, upload, decode,
-    download, split) timed one by one; X2 against its plain version on
+    download, split) timed one by one, the pinned download in turns with
+    a pageable one; ``decode_lists`` end to end in a fresh process, its
+    first call apart from its warm ones; X2 against its plain version on
     every list under ``torch.equal``, both timed in turns (CUDA events, L2
     flushed) against the bytes bound and the host's ``list_docids`` loop,
-    with profiler traces; then ``tools.queries ef ... --engine device
+    with profiler traces (with ``--x2-old SOURCE``, an earlier
+    ``ef_decode.cu`` with the count and decode entries of the chunk
+    design: its X2 over its chunk table held to the plain version and
+    timed in the same turns, and ``decode_lists`` as that design ran it,
+    chunk table, pageable download and all, in turns with the shipped one
+    in the fresh process); then ``tools.queries ef ... --engine device
     --device-ef``: X2 launched, no K4 and no class launch (the row path,
     unpruned, the reference's gates), top-10 against the oracle, counts
     against phase 11's;
@@ -245,13 +263,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -306,6 +326,8 @@ NATIVE_OPS = "and:or:ranked_or:wand:maxscore"  # tools.queries --engine native
 NATIVE_KINDS = (SERVE_TYPE, BLOCK_SERVE, "ef")
 FAMILY_RUNS = 3  # timed passes of tools.queries over the new kinds
 EF_DEVICE_ITERS = 50  # CUDA-event timings of X2 and its plain version
+EF_SPLIT_ROUNDS = 3  # decode_lists' download and split, in turns
+EF_E2E_ROUNDS = 7  # warm decode_lists calls in the fresh process
 LOCAL_CHAIN_RUNS = 200  # chained runs of LocalDecodeEngine.decode_chain
 LOCAL_PLAIN_RUNS = 2  # its chain salt held to the plain version's
 TOOLS_ZOO = "vbyte"  # the zoo stream check_encoded_data reads (host decode)
@@ -533,6 +555,43 @@ def check_fused(cases) -> int:
     return worst
 
 
+K3_ROWS = (1, 5, 67, 1000, 4097)  # no multiple of a K3 block at any n_out
+GUARD = -123456789  # the row after K3's output, which it must not touch
+
+
+def check_k3_widths(device="cuda") -> int:
+    """K3 alone at every n_out the kernels take, for row counts that are
+    no multiple of a block and the three salts: equal to its twin under
+    torch.equal, the guard row after its output untouched; return max
+    |kernel - twin|."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    rng = np.random.default_rng(13)
+    worst = 0
+    for n_out in dl._N_OUT_OK:
+        for rows in K3_ROWS:
+            n_np = rng.integers(0, n_out + 1, rows).astype(np.int32)
+            n_np[: min(rows, 2)] = (n_out, 0)[: min(rows, 2)]
+            n = torch.from_numpy(n_np).to(device)
+            for s in SALTS:
+                st = torch.tensor([s], dtype=torch.int64, device=device)
+                buf = torch.full((rows + 1, n_out), GUARD, dtype=torch.int32,
+                                 device=device)
+                got = dl.zero(n, st, n_out, out=buf[:rows])
+                want = dl.zero_plain(n, st, n_out)
+                torch.cuda.synchronize()
+                worst = max(worst, u32_err(got, want))
+                if not torch.equal(got, want):
+                    fail(f"K3 disagrees with its twin at n_out {n_out}, "
+                         f"{rows} rows, salt {s:#x}")
+                if not bool((buf[rows] == GUARD).all()):
+                    fail(f"K3 wrote past its output at n_out {n_out}, "
+                         f"{rows} rows, salt {s:#x}")
+    return worst
+
+
 def class_kernels():
     """[(width class, kernel name, kernel, twin)], K1 first."""
     from dint_tpu_torch.kernels import decode_local as dl
@@ -658,11 +717,34 @@ def time_in_turns(fns: dict, iters: int, flush, rounds: int = 2) -> dict:
     return {name: sum(v) / len(v) for name, v in got.items()}
 
 
-def time_kernels(engine, errs, card_name):
+def old_classes(lib, n0, cls16, cls32, salt, out, exact: bool = False):
+    """One launch of ``dint_decode_classes`` from ``lib``, an earlier build
+    of the class kernels with the same C entry, into ``out`` (N_OUT
+    lanes a row); nothing is checked or counted."""
+    import torch
+
+    from dint_tpu_torch.kernels import cuda_ext
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    ptrs = [n0.data_ptr() if n0 is not None else None,
+            n0.shape[0] if n0 is not None else 0]
+    for cls in (cls16, cls32):
+        ptrs += ([t.data_ptr() for t in cls] + [cls[2].shape[0]]
+                 if cls is not None else [None, None, None, 0])
+    rc = lib.dint_decode_classes(
+        *ptrs, salt.data_ptr(), out.data_ptr(), dl.N_OUT, int(bool(exact)),
+        torch.cuda.current_stream(salt.device).cuda_stream)
+    cuda_ext.check("libdintgather.so", "dint_decode_classes (old)", rc)
+
+
+def time_kernels(engine, errs, card_name, old_src=None):
     """One kernels-line entry per class kernel and one for the fused
     launch, at the bench image's shapes, timed in turns in one go: K1
     alone, an empty grid of K1's shape, the fused launch, the three
-    stand-alone launches back to back, K2 and K3 alone."""
+    stand-alone launches back to back, K2 and K3 alone, the zero class
+    alone in the fused launch and, with ``old_src`` (an earlier
+    ``decode_gather.cu``), that body's K3 and fused launch, first held
+    to their plain versions."""
     import torch
 
     from dint_tpu_torch.kernels import cuda_ext
@@ -715,6 +797,9 @@ def time_kernels(engine, errs, card_name):
             else:
                 dl.gather32(c.vidx, c.tab, c.n, salt, out=o)
 
+    # the zero class alone in the fused launch (no u16 or i32 rows)
+    zero_args = (args[0], None, None)
+    zero_buf = buf[: cases["K3_zero"][2]]
     fns = {"K1_gather32": lambda: cases["K1_gather32"][0](salt),
            "empty": empty,
            FUSED: lambda: dl.decode_classes(*args, salt, out=buf),
@@ -723,7 +808,35 @@ def time_kernels(engine, errs, card_name):
            "K3_zero": lambda: cases["K3_zero"][0](salt),
            "library_gather": lambda: torch.gather(k1.tab, 1, lib_idx),
            "library_gather16": lambda: torch.gather(lib16_tab, 1, lib16_idx),
-           "library_fill": lambda: lib_fill.fill_(0x5A5A5A5A)}
+           "library_fill": lambda: lib_fill.fill_(0x5A5A5A5A),
+           "zero_in_fused": lambda: dl.decode_classes(*zero_args, salt,
+                                                      out=zero_buf)}
+    if old_src:
+        old = cuda_ext.variant("libdintgather.so", old_src)
+        n0 = args[0]
+        old_zero_out = torch.empty_like(lib_fill)
+
+        def old_zero():
+            cuda_ext.check("libdintgather.so", "dint_zero (old)",
+                           old.dint_zero(n0.data_ptr(), salt.data_ptr(),
+                                         old_zero_out.data_ptr(),
+                                         n0.shape[0], N_OUT, stream))
+
+        for exact in (False, True):
+            old_classes(old, *args, salt, buf, exact)
+            torch.cuda.synchronize()
+            if not torch.equal(buf, dl.decode_classes_plain(*args, salt,
+                                                            exact)):
+                fail(f"{old_src}: its fused launch disagrees with the plain "
+                     f"version (exact={exact})")
+        old_zero()
+        torch.cuda.synchronize()
+        if not torch.equal(old_zero_out, dl.zero_plain(n0, salt)):
+            fail(f"{old_src}: its K3 disagrees with the twin")
+        fns.update({"K3_old": old_zero,
+                    "fused_old": lambda: old_classes(old, *args, salt, buf),
+                    "zero_in_fused_old": lambda: old_classes(
+                        old, *zero_args, salt, zero_buf)})
     ms = time_in_turns(fns, 50, flush)
     plains = {name: (lambda p=cases[name][1]: p(salt))
               for name in DECODE_KERNELS}
@@ -760,6 +873,9 @@ def time_kernels(engine, errs, card_name):
     out[1]["library_call"] = LIBRARY_GATHER16
     out[2]["library_ms"] = ms["library_fill"]
     out[2]["library_call"] = LIBRARY_FILL
+    if old_src:
+        out[2]["old_body_ms"] = ms["K3_old"]
+        out[2]["old_body_source"] = old_src
     out.append({
         "name": FUSED,
         "route": "cuda",
@@ -776,12 +892,24 @@ def time_kernels(engine, errs, card_name):
         "library_ms": None,
         "rows": engine.rows,
         "three_launches_ms": ms["three"],
+        # the zero class alone in the fused launch, and its bytes bound
+        "zero_class_ms": ms["zero_in_fused"],
+        "zero_class_bound_ms": out[2]["bound_ms"],
     })
+    if old_src:
+        out[-1]["old_body_ms"] = ms["fused_old"]
+        out[-1]["zero_class_old_body_ms"] = ms["zero_in_fused_old"]
     for k in out:
         log(f"{k['name']} {k['ms'] * 1e3:.2f} us (bound "
             f"{k['bound_ms'] * 1e3:.2f} us, plain {k['plain_ms'] * 1e3:.1f} us)")
     log(f"empty grid of {k1_blocks} blocks {ms['empty'] * 1e3:.2f} us; the "
-        f"three class launches back to back {ms['three'] * 1e3:.2f} us")
+        f"three class launches back to back {ms['three'] * 1e3:.2f} us; the "
+        f"zero class alone in the fused launch "
+        f"{ms['zero_in_fused'] * 1e3:.2f} us")
+    if old_src:
+        log(f"the body of {old_src}: K3 {ms['K3_old'] * 1e3:.2f} us, fused "
+            f"{ms['fused_old'] * 1e3:.2f} us, the zero class alone in it "
+            f"{ms['zero_in_fused_old'] * 1e3:.2f} us (in turns)")
     del flush
     return out
 
@@ -789,6 +917,87 @@ def time_kernels(engine, errs, card_name):
 # ---------------------------------------------------------------------------
 # X1 (the fused ladder unpack) and X2 (the EF decode)
 # ---------------------------------------------------------------------------
+
+
+def k3_at_scale(old_src: str, ints: float, card_name: str) -> dict:
+    """The fused launch and the zero class alone in it at ``ints``
+    requested postings (``tools.scale_test``'s collection and
+    single_rect_dint stream, built in a fresh cache under CACHE), the
+    shipped body and ``old_src``'s (an earlier ``decode_gather.cu``):
+    each held to the plain version under torch.equal in both flags, then
+    timed in turns (``scale_test.time_launch``, as the scale record
+    times its launch; two rounds, the mean) against their bytes
+    bounds."""
+    import torch
+
+    from dint_tpu_torch.kernels import cuda_ext
+    from dint_tpu_torch.kernels import decode_local as dl
+    from dint_tpu_torch.tools import decode as dtool
+    from dint_tpu_torch.tools import scale_test
+
+    cache = os.path.join(CACHE, "scale_k3")
+    shutil.rmtree(cache, ignore_errors=True)
+    run = scale_test.ScaleRun(scale_test.parse_args(
+        ["--ints", str(ints), "--cache-dir", cache]))
+    with contextlib.redirect_stdout(sys.stderr):
+        stream = scale_test.build_stages(run)
+        dec = dtool.open_decoder("single_rect_dint", stream,
+                                 scale_test.dict_file(run), "local",
+                                 run.device)
+    eng = dec.engine
+    args = fused_args(eng)
+    zero_args = (args[0], None, None)
+    c0 = eng._classes[0]
+    salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device=eng.device)
+    buf = torch.empty((eng.rows, dl.N_OUT), dtype=torch.int32,
+                      device=eng.device)
+    zero_buf = buf[: c0.rows]
+    old = cuda_ext.variant("libdintgather.so", old_src)
+    for exact in (False, True):
+        want = dl.decode_classes_plain(*args, salt, exact)
+        for label, fn in (
+                ("the shipped body", lambda: dl.decode_classes(
+                    *args, salt, exact, out=buf)),
+                (old_src, lambda: old_classes(old, *args, salt, buf, exact))):
+            buf.fill_(GUARD)
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(buf, want):
+                fail(f"{label}: its fused launch at {ints:g} ints disagrees "
+                     f"with the plain version (exact={exact})")
+        del want
+    fns = {"us": lambda: dl.decode_classes(*args, salt, out=buf),
+           "old_body_us": lambda: old_classes(old, *args, salt, buf),
+           "zero_class_us": lambda: dl.decode_classes(*zero_args, salt,
+                                                      out=zero_buf),
+           "zero_class_old_body_us": lambda: old_classes(
+               old, *zero_args, salt, zero_buf)}
+    got = {k: [] for k in fns}
+    for _ in range(2):
+        for k, fn in fns.items():
+            got[k].append(scale_test.time_launch(fn) * 1e3)
+    rate = hbm_rate(card_name)
+    nbytes = 8 + eng.rows * dl.N_OUT * 4 + sum(
+        t.numel() * t.element_size() for c in eng._classes
+        for t in (c.vidx, c.tab, c.n) if t is not None)
+    zero_bytes = 8 + c0.rows * (4 + dl.N_OUT * 4)
+    rec = {"ints": ints, "postings": run.record["postings"],
+           "padded_rows": {"zero": c0.rows, "u16": eng._classes[1].rows,
+                           "i32": eng._classes[2].rows},
+           "bytes": nbytes, "bound_us": nbytes / rate * 1e6,
+           "zero_class_bytes": zero_bytes,
+           "zero_class_bound_us": zero_bytes / rate * 1e6,
+           "old_body_source": old_src, "rounds_us": got,
+           **{k: sum(v) / len(v) for k, v in got.items()}}
+    del dec, eng, args, zero_args, c0, buf, zero_buf, fns
+    torch.cuda.empty_cache()
+    shutil.rmtree(cache, ignore_errors=True)
+    log(f"at {rec['postings']} postings: the fused launch {rec['us']:.2f} us "
+        f"(the body of {old_src}: {rec['old_body_us']:.2f}; bound "
+        f"{rec['bound_us']:.2f}), the zero class alone in it "
+        f"{rec['zero_class_us']:.2f} ({rec['zero_class_old_body_us']:.2f}; "
+        f"bound {rec['zero_class_bound_us']:.2f}), in turns")
+    return rec
 
 
 def x1_edge_classes(device, seed: int = 0):
@@ -1334,21 +1543,14 @@ K5_RAGGED = ((2500, 1024), (37, 1024), (1000, 7))  # a last tile cut short
 
 
 def build_k5_variant(src: str):
-    """Compile another K5 source (same C entry ``dint_store_tile``) into
-    the cache directory and return its entry as ``fn(salt, out, rows,
-    row_tile)``: for timing an earlier body beside the shipped one."""
-    import ctypes
-
+    """Compile another K5 source (same C entry ``dint_store_tile``) and
+    return its entry as ``fn(salt, out, rows, row_tile)``: for timing an
+    earlier body beside the shipped one."""
     import torch
 
     from dint_tpu_torch.kernels import cuda_ext
 
-    so = os.path.join(CACHE, "libk5variant.so")
-    subprocess.run([cuda_ext.nvcc(), *cuda_ext.NVCC_FLAGS, "-o", so, src],
-                   check=True)
-    entry = ctypes.CDLL(so).dint_store_tile
-    entry.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_int, ctypes.c_void_p]
+    entry = cuda_ext.variant("libdintprobe.so", src).dint_store_tile
 
     def run(salt, out, rows, row_tile):
         rc = entry(salt.data_ptr(), out.data_ptr(), rows, row_tile,
@@ -2862,13 +3064,155 @@ def block_serve_phase(base, paths, family, oracle, bool_counts,
     }
 
 
+# the C entries of X2's earlier chunk design, for --x2-old
+X2_CHUNK_SIGNATURES = {
+    # words, geo, chunks, counts, C, L, stream
+    "dint_ef_count": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+    + [ctypes.c_void_p],
+    # words, geo, chunks, incl, counts, out_start, out, C, L, stream
+    "dint_ef_decode": [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2
+    + [ctypes.c_void_p],
+}
+X2_CHUNK_WORDS = 256  # the chunk design's words a chunk (a block a chunk)
+
+
+def chunk_prepare(words, specs, params) -> dict:
+    """The host half of the chunk design (``ef_device.prepare`` before the
+    block design): the u32 words with one guard word, each list's
+    geometry, and each list's high region cut into chunks of at most
+    X2_CHUNK_WORDS words, (list, first high word) a chunk."""
+    from dint_tpu_torch.codecs import ef as ef_mod
+
+    w32 = np.ascontiguousarray(words, dtype="<u8").view("<u4")
+    L = len(specs)
+    geo = np.zeros((5, L), np.int64)  # n, w, lbo, hbo, hbl
+    for k, (off, universe, n) in enumerate(specs):
+        if n == 0:
+            continue
+        of = ef_mod.ef_offsets(off, universe, n, params)
+        geo[:, k] = (of.n, of.lower_bits, of.lower_bits_offset,
+                     of.higher_bits_offset, of.higher_bits_length)
+    n, hbo, hbl = geo[0], geo[3], geo[4]
+    hwc = np.where(n > 0, ((hbo + hbl - 1) >> 5) - (hbo >> 5) + 1, 0)
+    per = -(-hwc // X2_CHUNK_WORDS)
+    c_list = np.repeat(np.arange(L, dtype=np.int64), per)
+    c_first = np.cumsum(per) - per
+    c_w0 = ((hbo >> 5)[c_list]
+            + (np.arange(c_list.shape[0]) - c_first[c_list]) * X2_CHUNK_WORDS)
+    return {"words": np.concatenate([w32, np.zeros(1, "<u4")]).view("<i4"),
+            "geo": geo, "chunks": np.stack([c_list, c_w0], axis=1),
+            "out_start": np.cumsum(n) - n, "total": int(n.sum())}
+
+
+def chunk_upload(prep: dict, device="cuda") -> dict:
+    """``chunk_prepare``'s tables as tensors on ``device``."""
+    import torch
+
+    out = {k: torch.from_numpy(prep[k]).to(device)
+           for k in ("words", "geo", "chunks", "out_start")}
+    out["total"] = prep["total"]
+    return out
+
+
+def chunk_decode(lib, t: dict):
+    """The chunk design's X2 from ``lib`` over ``chunk_upload``'s tables:
+    its count pass, the cumulative sum of the counts and its decode pass
+    into a new int32 tensor."""
+    import torch
+
+    from dint_tpu_torch.kernels import cuda_ext
+
+    C, L = t["chunks"].shape[0], t["geo"].shape[1]
+    dev = t["words"].device
+    w, g, c, o = (t[k].data_ptr() for k in ("words", "geo", "chunks",
+                                            "out_start"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counts = torch.empty(C, dtype=torch.int32, device=dev)
+    out = torch.empty(t["total"], dtype=torch.int32, device=dev)
+    cuda_ext.check("libdintef.so", "dint_ef_count (old)", lib.dint_ef_count(
+        w, g, c, counts.data_ptr(), C, L, stream))
+    incl = torch.cumsum(counts, 0, dtype=torch.int64)
+    cuda_ext.check("libdintef.so", "dint_ef_decode (old)", lib.dint_ef_decode(
+        w, g, c, incl.data_ptr(), counts.data_ptr(), o, out.data_ptr(), C, L,
+        stream))
+    return out
+
+
+def chunk_decode_lists(lib, words, specs, params) -> list:
+    """``ef_device.decode_lists`` as the chunk design ran it: its prepare,
+    upload and X2, a pageable download, one uint64 array a list."""
+    prep = chunk_prepare(words, specs, params)
+    flat = chunk_decode(lib, chunk_upload(prep)).cpu().numpy().view(np.uint32)
+    ends = np.cumsum(prep["geo"][0])
+    return [v.astype(np.uint64) for v in np.split(flat, ends[:-1])]
+
+
+def ef_specs(idx) -> list:
+    """(offset_bits, universe, n) of every docid list of the EF index."""
+    specs = []
+    for t in range(idx.num_lists):
+        _, n, pos = idx._list_header(t)
+        specs.append((pos, idx.num_docs, n))
+    return specs
+
+
+def decode_lists_turns(ef_path: str, old_src, rounds: int) -> dict:
+    """Run in a fresh process: ``ef_device.decode_lists`` over every list
+    of the EF index at ``ef_path`` on the card, end to end on the host
+    clock; its first call, which allocates the pinned download buffer
+    (the card and X2 readied before it by one X2 call over the same
+    tables), apart from ``rounds`` warm calls.  With ``old_src`` (the
+    chunk design's ``ef_decode.cu``) ``chunk_decode_lists`` too, its
+    first call after the shipped one's, then in turns with it.  Every
+    call's lists equal the first call's."""
+    import torch
+
+    from dint_tpu_torch.codecs import ef_device
+    from dint_tpu_torch.index.freq_index import FreqIndexEF
+    from dint_tpu_torch.kernels import cuda_ext
+
+    idx = FreqIndexEF.load(ef_path)
+    words, specs, params = idx.docs.words, ef_specs(idx), idx.params
+    paths = {"decode_lists_s": lambda: ef_device.decode_lists(
+        words, specs, params, "cuda")}
+    ef_device.decode_tensors(ef_device.upload(
+        ef_device.prepare(words, specs, params), "cuda"))
+    if old_src:
+        lib = cuda_ext.variant("libdintef.so", old_src, X2_CHUNK_SIGNATURES)
+        chunk_decode(lib, chunk_upload(chunk_prepare(words, specs, params)))
+        paths["chunk_design_s"] = lambda: chunk_decode_lists(
+            lib, words, specs, params)
+    torch.cuda.synchronize()
+    got = {k: [] for k in paths}
+    want = None
+    for _ in range(rounds + 1):
+        for k, fn in paths.items():
+            t0 = time.perf_counter()
+            lists = fn()
+            got[k].append(time.perf_counter() - t0)
+            want = lists if want is None else want
+            if len(lists) != len(want) or not all(
+                    np.array_equal(a, b) for a, b in zip(lists, want)):
+                raise RuntimeError(f"decode_lists ({k}) differs from the "
+                                   "first call's lists")
+            del lists
+    out = {"rounds": rounds, "seconds": got}
+    for k, v in got.items():
+        out[k[:-2] + "_first_s"] = v[0]
+        out[k[:-2] + "_warm_s"] = sorted(v[1:])[rounds // 2]
+    return out
+
+
 def ef_phase(base, paths, family, oracle, bool_counts, card_name,
-             device="cuda"):
+             device="cuda", old_src=None):
     """Phase 23: every list of the ``ef`` index decoded on the card
     through ``EFTermDecoder(device_ef=True)`` (``codecs/ef_device.py``),
-    equal to the host decode and the collection; the device decode
-    timed alone by CUDA events (L2 flushed) against its bytes bound and
-    the host loop; then ``tools.queries ef --device-ef`` on the card,
+    equal to the host decode and the collection; ``decode_lists``' parts
+    one by one and, in a fresh process, end to end
+    (``decode_lists_turns``); the device decode timed alone by CUDA
+    events (L2 flushed) against its bytes bound and the host loop, with
+    ``old_src`` in turns with the chunk design's; then ``tools.queries
+    ef --device-ef`` on the card,
     launches counted from zero: no K4 and no class launch (the row path
     of ``device_batch``, unpruned), its top-10 against the oracle and
     its counts against the phase-11 counts."""
@@ -2876,6 +3220,7 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
 
     from dint_tpu_torch.codecs import ef_device
     from dint_tpu_torch.index.freq_index import EFTermDecoder, FreqIndexEF
+    from dint_tpu_torch.kernels import cuda_ext
     from dint_tpu_torch.query import boolean, device_batch, ranked
 
     _, wand, qfile = paths
@@ -2900,10 +3245,7 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
     if bad:
         fail(f"ef_device: lists {bad[:10]} differ from the host decode or "
              "the collection")
-    specs = []
-    for t in range(L):
-        _, n, pos = idx._list_header(t)
-        specs.append((pos, idx.num_docs, n))
+    specs = ef_specs(idx)
     # decode_lists' parts on the host clock, each ending in a sync
     split = {}
     t0 = time.perf_counter()
@@ -2917,15 +3259,28 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
     flat = ef_device.decode_tensors(tens)
     torch.cuda.synchronize()
     split["decode_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flat = flat.cpu().numpy().view(np.uint32)
-    split["download_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    # the download (its pinned buffer already made by decode_docids above)
+    # in turns with a pageable one, and the split: EF_SPLIT_ROUNDS rounds,
+    # medians
     ends = np.cumsum(prep["geo"][0])
-    lists = [v.astype(np.uint64) for v in np.split(flat, ends[:-1])]
-    split["split_s"] = time.perf_counter() - t0
-    if not all(np.array_equal(a, b) for a, b in zip(lists, host)):
-        fail("ef_device's parts, run one by one, differ from the host decode")
+    parts = {"download_s": [], "pageable_download_s": [], "split_s": []}
+    for _ in range(EF_SPLIT_ROUNDS):
+        t0 = time.perf_counter()
+        pageable = flat.cpu().numpy().view(np.uint32)
+        parts["pageable_download_s"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        host_flat = ef_device.download(flat)
+        parts["download_s"].append(time.perf_counter() - t0)
+        if not np.array_equal(host_flat, pageable):
+            fail("ef_device.download differs from a pageable download")
+        t0 = time.perf_counter()
+        lists = [v.astype(np.uint64) for v in np.split(host_flat, ends[:-1])]
+        parts["split_s"].append(time.perf_counter() - t0)
+        if not all(np.array_equal(a, b) for a, b in zip(lists, host)):
+            fail("ef_device's parts, run one by one, differ from the host "
+                 "decode")
+        del lists, host_flat, pageable
+    split.update({k: sorted(v)[len(v) // 2] for k, v in parts.items()})
     total, nwords = prep["sizes"]
     err = check_x2("the ef index's lists", tens) if device == "cuda" else 0
     nbytes = prep["words"].nbytes + 4 * total
@@ -2938,22 +3293,44 @@ def ef_phase(base, paths, family, oracle, bool_counts, card_name,
               # high word (two passes)
               **bound_entry(nbytes, (12 * total + 8 * nwords)
                             / INT32_OPS_PER_S * 1e3, card_name),
-              "library_ms": None, "lists": L, "chunks": int(
-                  prep["chunks"].shape[0])}
+              "library_ms": None, "lists": L,
+              "blocks": int(prep["block_list"].shape[0])}
     prof = {}
     if device == "cuda":
         flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
-        ms = time_in_turns({
-            "x2": lambda: ef_device.decode_tensors(tens),
-            "plain": lambda: ef_device.decode_tensors_plain(tens)},
-            EF_DEVICE_ITERS, flush)
-        del flush
+        fns = {"x2": lambda: ef_device.decode_tensors(tens),
+               "plain": lambda: ef_device.decode_tensors_plain(tens)}
+        if old_src:
+            old = cuda_ext.variant("libdintef.so", old_src,
+                                   X2_CHUNK_SIGNATURES)
+            old_tens = chunk_upload(chunk_prepare(idx.docs.words, specs,
+                                                  idx.params))
+            got = chunk_decode(old, old_tens)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ef_device.decode_tensors_plain(tens)):
+                fail(f"{old_src}: its X2 disagrees with the plain version on "
+                     "the ef index's lists")
+            del got
+            fns["old"] = lambda: chunk_decode(old, old_tens)
+            kernel["old_body_chunks"] = int(old_tens["chunks"].shape[0])
+        ms = time_in_turns(fns, EF_DEVICE_ITERS, flush)
+        del flush, fns
         kernel["ms"], kernel["plain_ms"] = ms["x2"], ms["plain"]
+        if old_src:
+            kernel["old_body_ms"] = ms["old"]
+            kernel["old_body_source"] = old_src
         for key, fn, runs in (("x2", ef_device.decode_tensors, 10),
                               ("plain", ef_device.decode_tensors_plain, 1)):
             prof[key] = profile_device(
                 lambda fn=fn, runs=runs: [fn(tens) for _ in range(runs)],
                 runs, os.path.join(CACHE, f"ef_device_trace.{key}.json"))
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+                "spawn")) as ex:
+            split["end_to_end"] = ex.submit(
+                decode_lists_turns, family["ef"], old_src,
+                EF_E2E_ROUNDS).result()
+        if old_src:
+            del old_tens
     del tens, flat
     torch.cuda.empty_cache()
     out = {"lists": L, "ints": total, "high_words": nwords,
@@ -3501,7 +3878,22 @@ def main(argv=None) -> int:
                     help="another K5 source with the same C entry (an "
                     "earlier body, say from git history): timed in turns "
                     "beside the shipped kernel and fill_")
+    ap.add_argument("--k3-old", metavar="SOURCE",
+                    help="another decode_gather.cu with the same C entries "
+                    "(an earlier body): its K3 and fused launch timed in "
+                    "turns beside the shipped ones")
+    ap.add_argument("--k3-old-scale", metavar="INTS", type=float,
+                    help="with --k3-old: both bodies' fused launch and zero "
+                    "class also at INTS requested postings, as "
+                    "tools.scale_test --ints INTS synthesizes and encodes "
+                    "them (1e8: 90,855,447 postings)")
+    ap.add_argument("--x2-old", metavar="SOURCE",
+                    help="an ef_decode.cu of the chunk design (its count "
+                    "and decode entries over a chunk table): timed in turns "
+                    "beside the shipped X2 on the ef index")
     args = ap.parse_args(argv)
+    if args.k3_old_scale and not args.k3_old:
+        ap.error("--k3-old-scale needs --k3-old")
 
     import torch
 
@@ -3537,16 +3929,20 @@ def main(argv=None) -> int:
         f"{img.n16.shape[0]}, i32 {img.n32.shape[0]}; "
         f"{img.device_bytes()} B")
     errs = check_kernels(kernel_cases(dec.engine))
+    errs["K3_zero"] = max(errs["K3_zero"], check_k3_widths())
     errs[FUSED] = check_fused([("bench image", fused_args(dec.engine))]
                               + fused_edge_cases("cuda"))
     log(f"kernels equal their plain versions on the card: {errs}")
-    kernels = time_kernels(dec.engine, errs, kind)
+    kernels = time_kernels(dec.engine, errs, kind, args.k3_old)
     salt = chain_against_twins(dec.engine)
     log(f"chain salt on the card equals the host twins': {salt:#x}")
     prof = profile_device(lambda: dec.engine.decode_chain(PROFILE_RUNS),
                           PROFILE_RUNS, os.path.join(CACHE, "chain_trace.json"))
     print(json.dumps({"profile": prof}), flush=True)
     del dec
+    if args.k3_old_scale:
+        next(k for k in kernels if k["name"] == FUSED)["at_scale"] = (
+            k3_at_scale(args.k3_old, args.k3_old_scale, kind))
     # X1 against its plain version in both layouts (the bench ladder
     # image, the sharded pack of the same stream, every width on edge
     # inputs), X2 on the EF edge arena; X1 timed at the main path's
@@ -3703,7 +4099,8 @@ def main(argv=None) -> int:
 
     # 23. ef: every list through ef_device on the card, then the row
     # path of the queries tool (no K4), exact
-    ef_rec = ef_phase(base, paths, family, oracle, bool_counts, kind)
+    ef_rec = ef_phase(base, paths, family, oracle, bool_counts, kind,
+                      old_src=args.x2_old)
     print(json.dumps({"ef": {**ef_rec, "device": kind, "nvidia_smi": smi}}),
           flush=True)
     mark(t_start, "phase 23")

@@ -8,11 +8,16 @@ whole-list like ``codecs/ef.py::compact_elias_fano.decode_all``):
 Every list of a call decodes in one pass over one upload of the u32
 words (no grouping by shape, no padding), into one int32 tensor holding
 the u32 values in list order.  On the card that pass is X2, the hand
-kernel ``kernels/csrc/ef_decode.cu`` (``decode_tensors``): ``prepare``
-cuts each list's high region into chunks of at most ``CHUNK_WORDS``
-words, a first launch counts each chunk's ones, a cumulative sum over
-one int a chunk gives each chunk's first output, and a second launch
-enumerates every word's ones with their low fields, a thread a word.
+kernels of ``kernels/csrc/ef_decode.cu`` (``decode_tensors``): the
+lists' high regions in list order form one sequence of words, whose
+ones, counted in that order, are the output indices; ``prepare`` lays
+that sequence out with each word masked to its region, a bit a word
+where a list starts, a row a list and the row of each block's first
+word; a count launch gives the ones of each block of ``BLOCK_WORDS``
+words, a cumulative sum of one int a block its first output, and a
+decode launch enumerates every word's ones with their low fields.
+``decode_lists`` downloads the values through a pinned buffer kept for
+the card and converts each list to uint64.
 
 ``decode_tensors_plain`` is its plain version, which the CPU runs, as
 torch ops in int64 (values below 2**32, every right shift acts on
@@ -43,7 +48,8 @@ from . import ef as ef_mod
 
 _M32 = 0xFFFFFFFF
 _X2_LIB = "libdintef.so"
-CHUNK_WORDS = 256  # high-region words of an X2 chunk (a block a chunk)
+BLOCK_WORDS = 512  # high-region words of an X2 block (csrc/ef_decode.cu)
+GUARD_WORDS = 3  # zero words after the arena: X2 reads low words ahead
 
 
 def prepare(words: np.ndarray, specs: List[Tuple[int, int, int]],
@@ -64,27 +70,46 @@ def prepare(words: np.ndarray, specs: List[Tuple[int, int, int]],
                      of.higher_bits_offset, of.higher_bits_length)
     n, hbo, hbl = geo[0], geo[3], geo[4]
     hwc = np.where(n > 0, ((hbo + hbl - 1) >> 5) - (hbo >> 5) + 1, 0)
-    # X2's chunks: (list, first high word), CHUNK_WORDS words at most,
-    # none spanning two lists
-    per = -(-hwc // CHUNK_WORDS)
-    c_list = np.repeat(np.arange(L, dtype=np.int64), per)
-    c_first = np.cumsum(per) - per
-    c_w0 = ((hbo >> 5)[c_list]
-            + (np.arange(c_list.shape[0]) - c_first[c_list]) * CHUNK_WORDS)
-    # one zero guard word: a low field may read the word after the last
-    return {"words": np.concatenate([w32, np.zeros(1, "<u4")]).view("<i4"),
-            "geo": geo, "hwc": hwc,
-            "chunks": np.stack([c_list, c_w0], axis=1),
-            "out_start": np.cumsum(n) - n,
-            "sizes": (int(n.sum()), int(hwc.sum()))}
+    # the sequence of every list's high words in list order, each masked to
+    # its region, and X2's tables over it: a bit a word where a list with
+    # values starts, a row a list with values (its first word, its first
+    # output, lbo, w | (hbo & 31) << 8), and the row of each block's first
+    # word (a block takes BLOCK_WORDS words)
+    wend = np.cumsum(hwc)
+    wstart = wend - hwc
+    nw = int(wend[-1]) if L else 0
+    live = np.flatnonzero(n > 0)
+    high = w32[np.arange(nw) + np.repeat((hbo >> 5) - wstart, hwc)]
+    # a region's first and last words hold bits of its neighbours
+    end = hbo[live] + hbl[live]
+    high[wstart[live]] &= ((_M32 << (hbo[live] & 31)) & _M32).astype("<u4")
+    high[wend[live] - 1] &= (_M32 >> ((-end) & 31)).astype("<u4")
+    starts = np.zeros(-(-nw // 32) * 32, np.uint8)
+    starts[wstart[live]] = 1
+    out_start = np.cumsum(n) - n
+    lists = np.stack([wstart[live], out_start[live], geo[2][live],
+                      geo[1][live] | ((hbo[live] & 31) << 8)], axis=1)
+    # the list holding sequence word g: the first whose words end past g
+    block_list = np.searchsorted(wend[live], np.arange(0, nw, BLOCK_WORDS),
+                                 side="right")
+    guard = np.zeros(GUARD_WORDS, "<u4")
+    return {"words": np.concatenate([w32, guard]).view("<i4"),
+            "high": high.view("<i4"),
+            "starts": np.packbits(starts, bitorder="little").view("<i4"),
+            "lists": np.ascontiguousarray(lists, np.int64),
+            "block_list": block_list.astype(np.int64),
+            "geo": geo, "hwc": hwc, "out_start": out_start,
+            "sizes": (int(n.sum()), nw)}
 
 
 def upload(prep: Dict, device) -> Dict:
-    """The words, the geometry and the chunks as tensors on ``device``;
-    the two output sizes stay host ints, so the decode needs no sync."""
+    """The words, the geometry and the block table as tensors on
+    ``device``; the two sizes stay host ints, so the decode needs no
+    sync."""
     d = resolve_device(device)
     out = {k: torch.from_numpy(prep[k]).to(d)
-           for k in ("words", "geo", "hwc", "chunks", "out_start")}
+           for k in ("words", "high", "starts", "lists", "block_list", "geo",
+                     "hwc", "out_start")}
     out["sizes"] = prep["sizes"]
     return out
 
@@ -155,9 +180,10 @@ def decode_tensors_plain(t: Dict) -> torch.Tensor:
 
 def decode_tensors(t: Dict) -> torch.Tensor:
     """X2, the device half: every list's values, concatenated in list
-    order, as int32 holding the u32 bits.  On a CUDA device two launches
-    of ``csrc/ef_decode.cu`` around a cumulative sum of one int a chunk
-    (or the call raises); on the CPU ``decode_tensors_plain``."""
+    order, as int32 holding the u32 bits.  On a CUDA device the count
+    and decode launches of ``csrc/ef_decode.cu`` around a cumulative sum
+    of one int a block (or the call raises); on the CPU
+    ``decode_tensors_plain``."""
     name = "ef_decode"
     words = t["words"]
     dev = words.device
@@ -165,36 +191,38 @@ def decode_tensors(t: Dict) -> torch.Tensor:
         return decode_tensors_plain(t)
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    geo, chunks, out_start = t["geo"], t["chunks"], t["out_start"]
-    L = geo.shape[1]
-    C = chunks.shape[0]
-    for k, x, dtype, shape in (("words", words, torch.int32, None),
-                               ("geo", geo, torch.int64, (5, L)),
-                               ("chunks", chunks, torch.int64, (C, 2)),
-                               ("out_start", out_start, torch.int64, (L,))):
+    total, nw = t["sizes"]
+    B = -(-nw // BLOCK_WORDS)
+    for k, dtype, shape in (("words", torch.int32, None),
+                            ("high", torch.int32, (nw,)),
+                            ("starts", torch.int32, (-(-nw // 32),)),
+                            ("lists", torch.int64, None),
+                            ("block_list", torch.int64, (B,))):
+        x = t[k]
         if x.dtype != dtype or x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous {dtype} on "
                              f"{dev}, got {x.dtype} on {x.device}")
         if shape is not None and tuple(x.shape) != shape:
             raise ValueError(f"{name}: {k} must be {shape}, got "
                              f"{tuple(x.shape)}")
-    total = t["sizes"][0]
+    if t["lists"].dim() != 2 or t["lists"].shape[1] != 4:
+        raise ValueError(f"{name}: lists must be (lists with values, 4), got "
+                         f"{tuple(t['lists'].shape)}")
     out = torch.empty(total, dtype=torch.int32, device=dev)
-    if C == 0:
+    if B == 0:
         return out
     from ..kernels import cuda_ext
 
     lib = cuda_ext.lib(_X2_LIB)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    counts = torch.empty(C, dtype=torch.int32, device=dev)
+    counts = torch.empty(B, dtype=torch.int64, device=dev)
     cuda_ext.check(_X2_LIB, "dint_ef_count", lib.dint_ef_count(
-        words.data_ptr(), geo.data_ptr(), chunks.data_ptr(),
-        counts.data_ptr(), C, L, stream))
-    incl = torch.cumsum(counts, 0, dtype=torch.int64)
+        t["high"].data_ptr(), counts.data_ptr(), B, nw, stream))
+    incl = torch.cumsum(counts, 0)
     cuda_ext.check(_X2_LIB, "dint_ef_decode", lib.dint_ef_decode(
-        words.data_ptr(), geo.data_ptr(), chunks.data_ptr(),
-        incl.data_ptr(), counts.data_ptr(), out_start.data_ptr(),
-        out.data_ptr(), C, L, stream))
+        words.data_ptr(), t["high"].data_ptr(), t["starts"].data_ptr(),
+        t["block_list"].data_ptr(), t["lists"].data_ptr(), incl.data_ptr(),
+        counts.data_ptr(), out.data_ptr(), B, nw, stream))
     decode_tensors.launches += 1
     return out
 
@@ -214,14 +242,37 @@ def launch_counts() -> Dict[str, int]:
     return {k: w.launches for k, w in KERNELS.items()}
 
 
+_PINNED: Dict[int, torch.Tensor] = {}  # a card's index -> its host buffer
+
+
+def download(flat: torch.Tensor) -> np.ndarray:
+    """The u32 values of ``flat`` (int32 bits) on the host.  From a card
+    through one pinned buffer kept for that card and grown to the
+    largest download (a non-blocking copy, then a sync of the stream),
+    so the array returned holds until the next download from that card;
+    from the CPU the tensor's own memory."""
+    if flat.device.type == "cpu":
+        return flat.numpy().view(np.uint32)
+    n = flat.numel()
+    buf = _PINNED.get(flat.device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        _PINNED[flat.device.index] = buf
+    host = buf[:n]
+    host.copy_(flat.reshape(-1), non_blocking=True)
+    torch.cuda.current_stream(flat.device).synchronize()
+    return host.numpy().view(np.uint32)
+
+
 def decode_lists(words: np.ndarray, specs: List[Tuple[int, int, int]],
                  params: ef_mod.GlobalParameters,
                  device="cuda") -> List[np.ndarray]:
     """Decode many EF lists from one u64-word arena on ``device``; each
-    list comes back as a host uint64 array, as the reference's do."""
+    list comes back as its own host uint64 array, as the reference's
+    do."""
     prep = prepare(words, specs, params)
     if not specs:
         return []
-    flat = decode_tensors(upload(prep, device)).cpu().numpy().view(np.uint32)
+    flat = download(decode_tensors(upload(prep, device)))
     ends = np.cumsum(prep["geo"][0])
     return [v.astype(np.uint64) for v in np.split(flat, ends[:-1])]

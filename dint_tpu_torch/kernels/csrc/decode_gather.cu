@@ -41,13 +41,33 @@
 //    dependent trip into every live block, which cost K2 some 8% on the
 //    bench image.
 //
-// Launch shape shared by the bodies: one block of 256 threads covers
+// Launch shape of the gather bodies: one block of 256 threads covers
 // ROWS_PER_BLOCK = 1024 / n_out rows (4 at n_out = 256); thread t of a row
 // owns output lanes 4t..4t+3, so it reads one uchar4 of vidx and writes one
 // int4 of output (16 B, coalesced across the warp).  The rows' tables sit in
 // shared memory, so each table byte is read from device memory exactly once
 // and the data-dependent gather hits shared memory rather than L1/L2.
-
+//
+// K3 is write-only: 4 B of n a row in, 4 * n_out B a row out, a compare a
+// lane.  Its block is the fill's shape, not the rows': ZERO_VEC int4 stores
+// a thread, ZERO_VEC * 4 KiB a block (16 rows at n_out 256), the stores THREADS
+// int4 apart so that each is coalesced across the warp.  A thread asks for
+// the n of its ZERO_VEC rows at once, together with the salt, and then
+// issues its stores back to back, so a block waits for one trip to device
+// memory; the lanes of a warp read the same n word (one request a warp and
+// row).  The exact output (salt left out) is 0 on every lane whatever n
+// says: it reads no n and no salt.
+// On the bench image's zero class (15,632 rows, 16.0 MB) chip_smoke.py
+// measured, in turns on an NVIDIA H100 80GB HBM3 (700 W), this body alone
+// level with the earlier one (4 KiB a block, one int4 a thread, each thread
+// loading its n before its one store): 9.36 against 9.55 us in one call,
+// 9.42 against 9.57 in another, 9.63-9.78 against 9.61-9.72 in three
+// others; and slower than fill_ (8.99 us), against a 5.03 us bound: a
+// kernel that must read its fill value from device memory pays one trip
+// that fill_, whose value is a launch argument, does not.  Inside the fused
+// launch, where K3 runs on every path, it wins in every call: the zero class
+// alone took 9.90 us against the earlier body's 11.60, and the whole launch
+// 43.78 against 45.79 (216.99 against 222.67 at 90,855,447 postings).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +78,8 @@ constexpr int TABLE_CLS = 256;        // local table entries per row
 constexpr int LANES_PER_BLOCK = 1024;  // n_out * rows per block
 constexpr int MAX_ROWS_PER_BLOCK = 8;  // n_out >= 128
 constexpr int TAB_S_WORDS = MAX_ROWS_PER_BLOCK * TABLE_CLS;
+constexpr int ZERO_VEC = 4;  // K3: int4 stores a thread
+constexpr int ZERO_INT4_PER_BLOCK = THREADS * ZERO_VEC;
 
 // Start the copy of `rows_here` consecutive rows of a (R, words) u32 table
 // into shared memory: 16 bytes a thread and step, asynchronous, one group.
@@ -138,33 +160,57 @@ __device__ __forceinline__ void gather_rows(
 
 // K3 — replaces dint_tpu/kernels/decode_local.py:_zero_body (launched by
 // _pallas_zero_kernel through _pallas_split_fns, mode 0).
-// Bound: bytes, and write-only: 4 B of n per row read, 4*n_out B per row
-// written.  One thread per 16 B of output, no table and no vidx.  `fill` is
-// the salt, or 0 for the exact output.
+// Block `block` of the class writes int4 g = block * ZERO_INT4_PER_BLOCK +
+// k * THREADS + threadIdx.x of the class's rows, k < ZERO_VEC; an int4 past
+// the class (a last block only partly filled) is not written.  `fill` is the
+// salt, still in flight from its load when the n loads are issued, so both
+// trips overlap; `exact` (a launch argument) writes 0 everywhere and reads
+// no n.  `row_shift` is log2(n_out / 4).
 __device__ __forceinline__ void zero_rows(const int32_t* __restrict__ n,
-                                          int32_t fill,
+                                          int32_t fill, bool exact,
                                           int32_t* __restrict__ out,
                                           int64_t rows, int n_out,
                                           int64_t block) {
-  const int per_row = n_out / 4;
-  const int64_t g = block * THREADS + threadIdx.x;
-  if (g >= rows * per_row) return;
-  const int64_t r = g / per_row;
-  const int j = (int)(g - r * per_row) * 4;
-  const int nr = __ldg(n + r);
-  int4 o;
-  o.x = j + 0 < nr ? fill : 0;
-  o.y = j + 1 < nr ? fill : 0;
-  o.z = j + 2 < nr ? fill : 0;
-  o.w = j + 3 < nr ? fill : 0;
-  reinterpret_cast<int4*>(out)[g] = o;
+  const int row_shift = __ffs(n_out / 4) - 1;
+  const int64_t end = rows << row_shift;
+  const int64_t g0 = block * ZERO_INT4_PER_BLOCK + threadIdx.x;
+  int4* o = reinterpret_cast<int4*>(out);
+  if (exact) {
+    const int4 v = make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < ZERO_VEC; ++k) {
+      const int64_t g = g0 + k * THREADS;
+      if (g < end) o[g] = v;
+    }
+    return;
+  }
+  int nr[ZERO_VEC];
+#pragma unroll
+  for (int k = 0; k < ZERO_VEC; ++k) {
+    const int64_t g = g0 + k * THREADS;
+    nr[k] = g < end ? __ldg(n + (g >> row_shift)) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < ZERO_VEC; ++k) {
+    const int64_t g = g0 + k * THREADS;
+    if (g >= end) continue;
+    const int j = (int)(g & ((1 << row_shift) - 1)) * 4;
+    const int4 v = make_int4(j + 0 < nr[k] ? fill : 0, j + 1 < nr[k] ? fill : 0,
+                             j + 2 < nr[k] ? fill : 0, j + 3 < nr[k] ? fill : 0);
+    o[g] = v;
+  }
 }
 
-// Blocks a class of `rows` rows takes, in each of the three bodies (THREADS
-// threads of 4 lanes are LANES_PER_BLOCK lanes in K3 too).
+// Blocks a class of `rows` rows takes in the gather bodies (K1, K2).
 __host__ __device__ __forceinline__ int64_t class_blocks(int64_t rows, int n_out) {
   const int rpb = LANES_PER_BLOCK / n_out;
   return (rows + rpb - 1) / rpb;
+}
+
+// Blocks the zero class of `rows` rows takes in K3's body.
+__host__ __device__ __forceinline__ int64_t zero_blocks(int64_t rows, int n_out) {
+  const int64_t int4s = rows * (n_out / 4);
+  return (int4s + ZERO_INT4_PER_BLOCK - 1) / ZERO_INT4_PER_BLOCK;
 }
 
 template <int MODE>
@@ -180,7 +226,8 @@ gather_kernel(const uint8_t* __restrict__ vidx, const uint32_t* __restrict__ tab
 __global__ void __launch_bounds__(THREADS)
 zero_kernel(const int32_t* __restrict__ n, const long long* __restrict__ salt_p,
             int32_t* __restrict__ out, int64_t rows, int n_out) {
-  zero_rows(n, (int32_t)(uint32_t)__ldg(salt_p), out, rows, n_out, blockIdx.x);
+  zero_rows(n, (int32_t)(uint32_t)__ldg(salt_p), false, out, rows, n_out,
+            blockIdx.x);
 }
 
 // The three classes of one engine run.  Output rows are class-major in the
@@ -197,9 +244,10 @@ struct Classes {
 };
 
 // The fused class launch: blocks [0, b16) run K2's body, [b16, b16 + b32)
-// K1's, the rest K3's (the heaviest blocks first).  Each class's block count
-// is rounded up on its own, so no block straddles two classes and a block is
-// uniform in its body, barriers included.
+// K1's, the rest (zero_blocks of the zero class) K3's (the heaviest blocks
+// first).  Each class's block count is rounded up on its own, so no block
+// straddles two classes and a block is uniform in its body, barriers
+// included.
 __global__ void __launch_bounds__(THREADS)
 decode_classes_kernel(Classes c, const long long* __restrict__ salt_p,
                       int32_t* __restrict__ out, int n_out, int exact) {
@@ -220,7 +268,7 @@ decode_classes_kernel(Classes c, const long long* __restrict__ salt_p,
                     tab_s);
     return;
   }
-  zero_rows(c.n0, exact ? 0 : (int32_t)salt, out, c.rows0, n_out, b - b32);
+  zero_rows(c.n0, (int32_t)salt, exact != 0, out, c.rows0, n_out, b - b32);
 }
 
 // Nothing: the floor that any launch of its own pays, for the measurements.
@@ -256,7 +304,7 @@ int dint_gather16(const void* vidx, const void* tab, const void* n,
 
 int dint_zero(const void* n, const void* salt, void* out, int64_t rows,
               int n_out, void* stream) {
-  zero_kernel<<<(unsigned)class_blocks(rows, n_out), THREADS, 0,
+  zero_kernel<<<(unsigned)zero_blocks(rows, n_out), THREADS, 0,
                 (cudaStream_t)stream>>>(
       (const int32_t*)n, (const long long*)salt, (int32_t*)out, rows, n_out);
   return (int)cudaGetLastError();
@@ -282,7 +330,7 @@ int dint_decode_classes(const void* n0, int64_t rows0, const void* vidx16,
   c.rows0 = rows0;
   c.rows16 = rows16;
   c.rows32 = rows32;
-  const int64_t blocks = class_blocks(rows0, n_out) +
+  const int64_t blocks = zero_blocks(rows0, n_out) +
                          class_blocks(rows16, n_out) +
                          class_blocks(rows32, n_out);
   decode_classes_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(

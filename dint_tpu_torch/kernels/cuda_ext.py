@@ -58,10 +58,11 @@ _SIGNATURES = {
         "dint_ladder_rows": [_P, ctypes.c_int, _P],
     },
     "libdintef.so": {
-        # words, geo, chunks, counts, C, L, stream
-        "dint_ef_count": [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, _P],
-        # words, geo, chunks, incl, counts, out_start, out, C, L, stream
-        "dint_ef_decode": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+        # high, counts, B, NW, stream
+        "dint_ef_count": [_P, _P, ctypes.c_int64, ctypes.c_int64, _P],
+        # words, high, starts, block_list, lists, incl, counts, out, B, NW,
+        # stream
+        "dint_ef_decode": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
                            ctypes.c_int64, _P],
     },
 }
@@ -89,30 +90,49 @@ def nvcc() -> str:
 def build(so_name: str) -> str:
     """Compile ``so_name`` from its source if stale; return its path.
     Raises with the compiler's message if the build fails."""
-    src = os.path.join(CSRC, _SOURCES[so_name])
-    out = os.path.join(nativebuild.build_dir(), so_name)
+    return _compile(os.path.join(CSRC, _SOURCES[so_name]),
+                    os.path.join(nativebuild.build_dir(), so_name))
+
+
+def _compile(src: str, out: str) -> str:
     if nativebuild.fresh(out, [src]):
         return out
     with nativebuild.locked(out + ".lock"):
         if nativebuild.fresh(out, [src]):
             return out
         if not nativebuild.compile_atomic([nvcc(), *NVCC_FLAGS, src], [src], out):
-            raise RuntimeError(f"nvcc failed to build {so_name} from {src}")
+            raise RuntimeError(f"nvcc failed to build {out} from {src}")
     return out
+
+
+def _bind(path: str, signatures) -> ctypes.CDLL:
+    handle = ctypes.CDLL(path)
+    for fn, argtypes in signatures.items():
+        f = getattr(handle, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    handle.dint_error_string.argtypes = [ctypes.c_int]
+    handle.dint_error_string.restype = ctypes.c_char_p
+    return handle
 
 
 def lib(so_name: str = "libdintgather.so") -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     if so_name not in _libs:
-        handle = ctypes.CDLL(build(so_name))
-        for fn, argtypes in _SIGNATURES[so_name].items():
-            f = getattr(handle, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        handle.dint_error_string.argtypes = [ctypes.c_int]
-        handle.dint_error_string.restype = ctypes.c_char_p
-        _libs[so_name] = handle
+        _libs[so_name] = _bind(build(so_name), _SIGNATURES[so_name])
     return _libs[so_name]
+
+
+def variant(so_name: str, src: str, signatures=None) -> ctypes.CDLL:
+    """Another CUDA source (an earlier body of ``so_name``'s kernels, to
+    time in turns with the shipped one), built beside the shipped
+    libraries and bound with ``signatures`` ({C entry: argtypes};
+    ``so_name``'s by default).  Never called by the package itself."""
+    src = os.path.abspath(src)
+    stem = os.path.splitext(os.path.basename(src))[0]
+    out = os.path.join(nativebuild.build_dir(), f"variant_{stem}.so")
+    sigs = _SIGNATURES[so_name] if signatures is None else signatures
+    return _bind(_compile(src, out), sigs)
 
 
 def check(so_name: str, fn: str, rc: int) -> None:

@@ -53,7 +53,9 @@ allocation, both decode legs' rates, image bytes an int and cold starts,
 the serve µs a query of every op, and every check's result.
 ``--profile-runs N`` (card only) adds to each decode leg N chained runs
 under torch.profiler (wall against busy a run, against the bytes bound)
-and its one launch a run timed alone against its bytes bound.
+and its one launch a run timed alone against its bytes bound; for the
+gather leg also the zero class alone in the fused launch against its
+bytes bound.
 """
 
 from __future__ import annotations
@@ -366,7 +368,8 @@ def fused_launch(dec, rate: float) -> dict:
     """The gather leg's one launch a run (the fused K1-K3 class launch)
     at this stream's size: its rows by class, the bytes it must move
     (every class tensor read once, the output written once) and their
-    time at ``rate``, and its time alone."""
+    time at ``rate``, and its time alone; the same for the zero class
+    alone in the launch (no u16 or i32 rows)."""
     from ..kernels import decode_local as dl
 
     eng, img = dec.engine, dec.engine.image
@@ -375,13 +378,23 @@ def fused_launch(dec, rate: float) -> dict:
     for c in eng._classes:
         nbytes += sum(t.numel() * t.element_size()
                       for t in (c.vidx, c.tab, c.n) if t is not None)
-    ms = time_launch(lambda: eng._run(salt))
-    return {"rows": {"zero": int(img.n0.shape[0]),
-                     "u16": int(img.n16.shape[0]),
-                     "i32": int(img.n32.shape[0])},
-            "padded_rows": {str(c.mode): c.rows for c in eng._classes},
-            "bytes": nbytes, "bound_us": nbytes / rate * 1e6,
-            "us": ms * 1e3}
+    rec = {"rows": {"zero": int(img.n0.shape[0]),
+                    "u16": int(img.n16.shape[0]),
+                    "i32": int(img.n32.shape[0])},
+           "padded_rows": {str(c.mode): c.rows for c in eng._classes},
+           "bytes": nbytes, "bound_us": nbytes / rate * 1e6,
+           "us": time_launch(lambda: eng._run(salt)) * 1e3}
+    c0 = next(c for c in eng._classes if c.mode == 0)
+    if c0.rows:
+        zero_bytes = 8 + c0.rows * (4 + dl.N_OUT * 4)
+        out = torch.empty((c0.rows, dl.N_OUT), dtype=torch.int32,
+                          device=eng.device)
+        ms = time_launch(lambda: dl.decode_classes(c0.n, None, None, salt,
+                                                   out=out))
+        rec.update({"zero_class_bytes": zero_bytes,
+                    "zero_class_bound_us": zero_bytes / rate * 1e6,
+                    "zero_class_us": ms * 1e3})
+    return rec
 
 
 def x1_launch(dec, rate: float) -> dict:

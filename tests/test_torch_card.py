@@ -9,18 +9,27 @@ also runs on a host that has neither; from the root of a checkout:
 (``--noconftest``: ``tests/conftest.py`` sets up JAX for the other
 files).  Covered: X1's rows entry on views of one uploaded tensor (an
 offset slice, unaligned, strided, transposed), ``entry()``'s fused
-launch against its plain version and the portable branch, and
+launch against its plain version and the portable branch,
 ``tools.scale_test`` at a tiny size through ``--decode`` and ``--serve``
-with the launches of its kernels counted.
+with the launches of its kernels counted, K3 (the zero class) alone and
+inside the fused class launch at every n_out against their plain
+versions with a guard row after the output, and X2 (the EF decode)
+against its plain version and the values written.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import x2_edge_arena
+from dint_tpu_torch.codecs import ef, ef_device
 from dint_tpu_torch.config import BLOCK_SIZE
 from dint_tpu_torch.kernels import decode_local as dl
 from dint_tpu_torch.kernels import unpack_device as ud
+from dint_tpu_torch.utils.bitio import BitBuilder
+
+SALTS = (0, 1, 0xFFFFFFFF)
+GUARD = -123456789  # the row after a kernel's output, which it must not touch
 
 
 @pytest.fixture
@@ -120,3 +129,115 @@ def test_scale_test_on_the_card(card, tmp_path):
     assert dl.decode_classes.launches > 0
     assert ud.ladder_unpack.launches > 0
     assert device_serve.launch_counts()["K4_block_copy"] > 0
+
+
+def zero_class(rows, n_out, seed):
+    """n (rows,) int32 of a zero class: empty rows, full rows, the rest
+    random."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, n_out + 1, rows).astype(np.int32)
+    n[: min(rows, 3)] = (0, n_out, 1)[: min(rows, 3)]
+    return torch.from_numpy(n)
+
+
+def guarded(rows, n_out, device):
+    """(an output view of ``rows`` rows, the whole buffer): one more row
+    after the view holds GUARD."""
+    buf = torch.full((rows + 1, n_out), GUARD, dtype=torch.int32,
+                     device=device)
+    return buf[:rows], buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [128, 256, 512, 1024])
+def test_k3_alone_equals_plain_and_stays_inside(card, n_out):
+    """K3 at row counts that are no multiple of a block (and one that
+    is), for the three salts: equal to ``zero_plain``, the row after its
+    output untouched."""
+    per_block = 1024 // (n_out // 4)  # rows of a K3 block
+    for rows in (1, 5, 67, 3 * per_block, 3 * per_block + 1, 1000):
+        n = zero_class(rows, n_out, rows).to(card)
+        for s in SALTS:
+            salt = torch.tensor([s], dtype=torch.int64, device=card)
+            out, buf = guarded(rows, n_out, card)
+            dl.zero(n, salt, n_out, out=out)
+            torch.cuda.synchronize()
+            assert torch.equal(out, dl.zero_plain(n, salt, n_out)), (rows, s)
+            assert (buf[rows] == GUARD).all(), (rows, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_out", [128, 256, 512, 1024])
+def test_fused_launch_equals_plain_at_every_width(card, n_out):
+    """The fused class launch in both flags and for the three salts, with
+    every class, with empty classes and with the zero class alone, at row
+    counts that are no multiple of a block: equal to its plain version,
+    the row after its output untouched."""
+    rng = np.random.default_rng(n_out)
+
+    def cls(rows, words):
+        vidx = torch.from_numpy(rng.integers(0, 256, (rows, n_out))
+                                .astype(np.uint8)).to(card)
+        tab = torch.from_numpy(rng.integers(0, 1 << 32, (rows, words),
+                                            dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(card)
+        return vidx, tab, zero_class(rows, n_out, rows + words).to(card)
+
+    n0 = zero_class(77, n_out, 5).to(card)
+    c16, c32 = cls(31, 128), cls(9, 256)
+    cases = [(n0, c16, c32), (n0, None, None), (None, c16, c32),
+             (n0, None, c32), (n0[:1], c16, None)]
+    for n0_, c16_, c32_ in cases:
+        rows = sum(0 if c is None else c.shape[0]
+                   for c in (n0_, c16_ and c16_[2], c32_ and c32_[2]))
+        for s in SALTS:
+            salt = torch.tensor([s], dtype=torch.int64, device=card)
+            for exact in (False, True):
+                out, buf = guarded(rows, n_out, card)
+                dl.decode_classes(n0_, c16_, c32_, salt, exact, n_out,
+                                  out=out)
+                torch.cuda.synchronize()
+                want = dl.decode_classes_plain(n0_, c16_, c32_, salt, exact,
+                                               n_out)
+                assert torch.equal(out, want), (rows, s, exact)
+                assert (buf[rows] == GUARD).all(), (rows, s, exact)
+
+
+@pytest.mark.cuda
+def test_x2_equals_plain_and_the_values(card):
+    """X2 (one call counted a call) on ``chip_smoke``'s edge arena (n = 0,
+    w = 0, one-word regions, a list of many blocks, values past 2^31)
+    and on many short lists:
+    equal to ``decode_tensors_plain`` and to the values written, and
+    ``decode_lists`` equal to them list by list, the first call's lists
+    unchanged after the second reuses the download buffer."""
+    words, specs, vals = x2_edge_arena()
+    many = [(n, u) for n, u in zip(np.random.default_rng(9).integers(
+        1, 40, 3000), np.full(3000, 10_000))]
+    bb = BitBuilder()
+    mspecs, mvals = [], []
+    for k, (n, u) in enumerate(many):
+        v = np.sort(np.random.default_rng(k).choice(u, n, replace=False)
+                    ).astype(np.uint64)
+        mspecs.append((bb.size, int(v[-1]) + 1, int(n)))
+        ef.compact_elias_fano.write(bb, v, int(v[-1]) + 1, int(n), ef.PARAMS)
+        mvals.append(v)
+    kept = []
+    for w, sp, vs in ((words, specs, vals), (bb.words(), mspecs, mvals)):
+        t = ef_device.upload(ef_device.prepare(w, sp, ef.PARAMS), card)
+        before = ef_device.decode_tensors.launches
+        got = ef_device.decode_tensors(t)
+        assert ef_device.decode_tensors.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, ef_device.decode_tensors_plain(t))
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      np.concatenate(vs).astype(np.uint32))
+        lists = ef_device.decode_lists(w, sp, ef.PARAMS, card)
+        assert len(lists) == len(vs)
+        for a, v in zip(lists, vs):
+            assert a.dtype == np.uint64
+            np.testing.assert_array_equal(a, v)
+        kept.append((lists, vs))
+    for lists, vs in kept:
+        for a, v in zip(lists, vs):
+            np.testing.assert_array_equal(a, v)
