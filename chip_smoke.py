@@ -17,7 +17,7 @@ single-device entry.
 Run from the root of a checkout.  Phases, each fatal on failure:
 
 1. card: the device's name and power limit; build the CUDA kernels
-   (``dint_tpu_torch/kernels/csrc/*.cu``, six sources, one nvcc each for
+   (``dint_tpu_torch/kernels/csrc/*.cu``, eight sources, one nvcc each for
    sm_90a) and the native host libraries (``native/*.cpp``, g++), all
    side by side;
 2. data: ``bench.py``'s synthetic collection (6000 lists, 4M docs,
@@ -124,10 +124,20 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     ``and``/``or`` the device counts; each op once through
     ``tools.queries.run_op``;
 14. torch.profiler traces of 3 serving passes, unpruned and pruned;
-15. raw engine: ``decode_stream(..., engine="raw", runs=10,
+15. raw engine: ``decode_stream(..., engine="raw", runs=100,
     check_collection, device="cuda")`` for both types, exact over every
-    list; the bucket census (units clean and dirty, tiles per (W, N, b))
-    and a torch.profiler trace of 2 runs (wall against device busy);
+    list, launches counted from zero: X3 once a tile a pass (tiles x
+    102), ``decode_units_plain`` never on the card, no other kernel; the
+    bucket census (units clean and dirty, tiles per (W, N, b)); X3
+    against its plain version under ``torch.equal`` (val, produced,
+    consumed) on every tile of both streams and on edge tiles (b 16 and
+    8, dirty and clean, W no multiple of 32, w_valid 0 and 1, exceptions
+    across window and step edges, runs, wrapping table offsets); X3 timed
+    a tile class and a whole pass in turns with its plain version (each
+    tile's median of CUDA events, L2 flushed, summed) against the bytes
+    bound; torch.profiler traces of 20
+    passes through X3 and 2 through its plain version (wall against
+    busy);
 16. zoo: the eleven ``VROOM_ZOO`` types encoded from the phase-2
     collection (``tools.encode.encode_zoo_many``: every type's lists in
     one pool of a process per core, under ``.chip_smoke/zoo/``), each
@@ -135,10 +145,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
     at 500 chained runs and, for
     the eight types with one, through its wire-structure engine at 100,
     every list checked, launches counted from zero for each (one X1
-    launch a run on the ladder image and on optpfor's folded classes);
+    launch a run on the ladder image and on optpfor's folded classes,
+    one X4 launch a run on the five byte codecs' wire engines);
     ints/s, image bytes an int and cold start per type; each ladder image
-    chained in turns through X1 and the torch-op chain; torch.profiler
-    traces of the ladder chain and of each wire engine family;
+    chained in turns through X1 and the torch-op chain; for the five byte
+    codecs, X4 against its plain version under ``torch.equal`` on every
+    class for the three salts (and on edge classes of both group widths),
+    the chain's checksum on the card equal to the host's, X4 timed in
+    turns with its plain version against the bytes bound and the chain
+    in turns through X4 and the torch-op chain; torch.profiler traces of
+    the ladder chain, of each wire engine family and of the byte
+    engine's torch-op chain;
 17. sharded steps, one NCCL rank on the card (``parallel.dist.run_ranks``;
     NCCL runs one rank a card and the host has one): ``stats_training_step``
     over every full 256-int block of the collection's docid gaps with
@@ -253,7 +270,8 @@ Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``,
 ``{"dict_perf_test": ...}``, ``{"scale_test": ...}`` and ``{"entry":
 ...}`` lines among them), the
 dry run's summary line, the card line, one ``{"kernels": [...]}`` line
-(K1-K7, the fused class launch, X1's two entries and X2) and, last,
+(K1-K7, the fused class launch, X1's two entries, X2, X3 and X4)
+and, last,
 ``{"ok": true,
 "device": {...}}``.  Exits non-zero with no result line when there is
 no card or no checkout around it.
@@ -287,12 +305,20 @@ PROFILE_RUNS = 200
 LADDER_PROFILE_RUNS = 50
 ABLATE_RUNS = 20  # chained runs a variant, tools/kernel_ablate's default
 ONEHOT_PLAIN_ROWS = 512  # plan rows K6/K7 are held to their plain version on
-# The raw chain-scan engine issues some tens of torch ops a tile (the
-# log-step scan of a dirty tile alone some hundred) over hundreds of
-# tiles a run, so a run costs the host tenths of a second: a few runs
-# measure it, 2000 would take the script's whole time limit.
-RAW_RUNS = 10
-RAW_PROFILE_RUNS = 2
+# The raw engine launches X3 once a tile (16 and 90 tiles a pass on the
+# two bench streams) and fetches one value a pass, as the reference does;
+# its torch-op version (X3's plain version) took tenths of a second a
+# pass, so it is profiled over a couple of passes only.
+RAW_RUNS = 100
+RAW_PROFILE_RUNS = 20
+RAW_PLAIN_PROFILE_RUNS = 2
+X3_ITERS = 50  # CUDA-event timings of X3 on each tile
+X3_PLAIN_ITERS = 5  # of its plain version (a multi_packed pass: ~0.4 s)
+TILE_SLEEP_CYCLES = 400_000  # ~0.2 ms of card sleep a tile of a timed pass
+X4_ITERS = 50  # CUDA-event timings of X4 and its plain version
+X4_CHECK_RUNS = 3  # chained runs whose checksum the card and host share
+BYTE_WIRE = ("vbyte", "maskedvbyte", "streamvbyte", "varintgb",
+             "varintg8iu")  # the zoo types whose wire engine runs X4
 ZOO_RUNS = 500  # chained runs of a zoo type's ladder image
 ZOO_WIRE_RUNS = 100  # chained runs of a wire-structure engine
 ZOO_PROFILE_RUNS = 50
@@ -345,6 +371,8 @@ FUSED = "K123_decode_classes"  # the engines' one launch over the classes
 X1 = "X1_ladder_unpack"  # the ladder engines' one launch a run
 X1_ROWS = "X1_ladder_rows"  # X1's entry for the sharded step's rows
 X2 = "X2_ef_decode"
+X3 = "X3_raw_decode"  # the raw engine's launch a tile
+X4 = "X4_byteclass_unpack"  # the byte codecs' wire engine's launch a run
 LADDER_TURN_RUNS = 500  # chained runs a turn, X1 beside the torch-op chain
 ZOO_TURN_RUNS = 200
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
@@ -1767,11 +1795,12 @@ def kernel_modules():
     """The modules whose wrappers count their launches."""
     from dint_tpu_torch.codecs import ef_device
     from dint_tpu_torch.kernels import (decode_local, decode_pallas,
-                                        store_probe, unpack_device)
+                                        decode_xla, store_probe,
+                                        unpack_device)
     from dint_tpu_torch.query import device_serve
 
     return (decode_local, device_serve, store_probe, decode_pallas,
-            unpack_device, ef_device)
+            unpack_device, ef_device, decode_xla)
 
 
 def reset_launch_counts() -> None:
@@ -2427,23 +2456,532 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
 # ---------------------------------------------------------------------------
 
 
-def raw_phases(data, base: str, smi: str, device="cuda"):
-    """Phase 15: ``decode_stream(engine="raw")`` for both DINT types on
-    the card, exact over every list; then the bucket census and a
-    torch.profiler trace of a few runs of the same plan.  Returns
-    {type: record}."""
+# ---------------------------------------------------------------------------
+# X3 (the raw decode a tile) and X4 (the byte-class wire unpack)
+# ---------------------------------------------------------------------------
+
+
+def x3_view(seed: int = 17, contexts: int = 2, table_words: int = 5000):
+    """(lengths, offsets u32, table u32) of a dictionary that holds every
+    entry length 0-16, the five runs 16-256 at EXCEPTIONS.., entries of
+    16 words, zero-length entries, table words with bit 31 set, and
+    offsets past the table and past 2^31 (the index wraps, then is
+    clamped)."""
+    from dint_tpu_torch.config import EXCEPTIONS, NUM_ENTRIES
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 17, size=(contexts, NUM_ENTRIES)).astype(
+        np.int32)
+    lengths[:, EXCEPTIONS : EXCEPTIONS + 5] = (256, 128, 64, 32, 16)
+    lengths[:, 7:40] = 16
+    lengths[:, 40:60] = 0
+    lengths[:, :EXCEPTIONS] = 1
+    offsets = rng.integers(0, table_words - 16,
+                           size=(contexts, NUM_ENTRIES)).astype(np.uint32)
+    offsets[:, 60:70] = table_words + rng.integers(0, 40, 10)
+    offsets[:, 70:80] = (1 << 32) - rng.integers(1, 20, 10)
+    offsets[:, 80:85] = (1 << 31) + rng.integers(0, 20, 5)
+    table = rng.integers(0, 1 << 32, size=table_words + 16,
+                         dtype=np.uint64).astype(np.uint32)
+    table[-16:] = 0
+    return lengths, offsets, table
+
+
+def x3_walk_rows(b: int, rows: int, W: int, seed: int):
+    """(cw, w_valid) of ``rows`` token rows a walk decodes: codewords
+    (runs, 16-word, zero-length and other entries), both exception
+    markers with their payload tokens, an exception as some rows' last
+    codeword, noise past w_valid."""
+    from dint_tpu_torch.config import EXCEPTIONS
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    rng = np.random.default_rng(seed)
+    top = 1 << b
+    _, small, large = dx._steps_for(b)
+    cw = np.zeros((rows, W), np.int32)
+    w_valid = np.zeros(rows, np.int32)
+    for r in range(rows):
+        q, limit = 0, int(rng.integers(1, W + 1))
+        while q < limit:
+            u = rng.random()
+            if u < 0.15:
+                step, mark = small, 0
+            elif u < 0.25:
+                step, mark = large, 1
+            else:
+                step = 1
+                mark = int(rng.choice([rng.integers(EXCEPTIONS, 7),
+                                       rng.integers(7, 85),
+                                       rng.integers(EXCEPTIONS, top)]))
+            if q + step > W:
+                break
+            cw[r, q] = mark
+            cw[r, q + 1 : q + step] = rng.integers(0, top, step - 1)
+            q += step
+        if r % 3 == 0 and q + large <= W:
+            cw[r, q] = 1
+            cw[r, q + 1 : q + large] = rng.integers(0, top, large - 1)
+            q += large
+        w_valid[r] = q
+        cw[r, q:] = rng.integers(0, top, W - q)
+    return cw, w_valid
+
+
+def x3_straddle_rows(b: int, W: int = 165):
+    """(cw, w_valid): rows whose exception ends at a 32-token window's
+    edge plus o, for o = 0 .. D - 1, both markers, at edges inside X3's
+    block step of 128 tokens and between two steps."""
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    _, small, large = dx._steps_for(b)
+    rows, wv = [], []
+    for edge in (32, 64, 128):
+        for mark, step in ((0, small), (1, large)):
+            for o in range(large):
+                p = edge + o - step
+                if p < 0:
+                    continue
+                r = np.full(W, 9, np.int32)
+                r[p] = mark
+                r[p + 1 : p + step] = (1 << b) - 1 - np.arange(step - 1)
+                rows.append(r)
+                wv.append(W - o)
+    return np.stack(rows), np.asarray(wv, np.int32)
+
+
+def x3_edge_tiles(seed: int = 13):
+    """[(label, (cw, w_valid, n, ctx, lengths, offsets, table) numpy,
+    b, n_out, assume_clean)]: X3's edge cases at b = 16 and 8, dirty and
+    clean, W no multiple of 32, w_valid 0 and 1, n below and above what
+    a row produces, n = 0 and n_out, window-edge exceptions, runs."""
+    from dint_tpu_torch.config import EXCEPTIONS
+
+    lengths, offsets, table = x3_view(seed)
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(label, cw, wv, b, n_out, clean, n=None):
+        B = cw.shape[0]
+        if n is None:
+            n = rng.integers(0, n_out + 1, B).astype(np.int32)
+            n[: min(B, 3)] = (0, n_out, 1)[: min(B, 3)]
+        ctx = (np.arange(B) % lengths.shape[0]).astype(np.int32)
+        cases.append((label, (cw, wv, n.astype(np.int32), ctx, lengths,
+                              offsets, table), b, n_out, clean))
+
+    for b in (16, 8):
+        cw, wv = x3_walk_rows(b, 45, 101, seed + b)
+        wv[3], wv[4] = 0, 1
+        add(f"b={b} dirty W=101", cw, wv, b, 256, False)
+        cw, wv = x3_walk_rows(b, 9, 1000, seed + 2 * b)
+        add(f"b={b} dirty W=1000", cw, wv, b, 1024, False,
+            n=np.full(9, 700, np.int32))
+        cw, wv = x3_straddle_rows(b)
+        add(f"b={b} window-edge exceptions", cw, wv, b, 1024, False,
+            n=np.full(cw.shape[0], 1024, np.int32))
+        cw = rng.integers(EXCEPTIONS, 1 << b, size=(37, 70)).astype(np.int32)
+        cw[:, ::5] = rng.integers(EXCEPTIONS, 85, size=cw[:, ::5].shape)
+        wv = rng.integers(0, 71, 37).astype(np.int32)
+        wv[:3] = (0, 1, 70)
+        add(f"b={b} clean W=70", cw, wv, b, 256, True)
+        runs = np.where(rng.random((6, 100)) < 0.5,
+                        rng.integers(EXCEPTIONS, EXCEPTIONS + 5, (6, 100)),
+                        rng.integers(7, 40, (6, 100))).astype(np.int32)
+        wv = np.asarray([100, 100, 50, 3, 1, 33], np.int32)
+        for clean in (False, True):
+            add(f"b={b} runs, clean={clean}", runs, wv, b, 4096, clean,
+                n=np.asarray([4096, 100, 4000, 300, 256, 8192], np.int32))
+    return cases
+
+
+def x3_args(case, device):
+    """A case of ``x3_edge_tiles`` as decode_units' tensors on ``device``
+    (u32 arrays as their int32 bits)."""
+    import torch
+
+    def up(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    return [up(a) for a in case[1]]
+
+
+def check_x3(cases) -> int:
+    """X3 equal to its plain version under torch.equal (val, produced,
+    consumed) on each (label, args, b, n_out, clean) of ``cases``, args
+    on the card; return the largest |kernel - plain| over the u32
+    values."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    worst = 0
+    for label, args, b, n_out, clean in cases:
+        got = dx.decode_units(*args, b=b, n_out=n_out, assume_clean=clean)
+        want = dx.decode_units_plain(*args, b=b, n_out=n_out,
+                                     assume_clean=clean)
+        torch.cuda.synchronize()
+        worst = max(worst, u32_err(got[0], want[0]))
+        for g, w, what in zip(got, want, ("val", "produced", "consumed")):
+            if not torch.equal(g, w):
+                fail(f"X3 disagrees with its plain version on {label}: "
+                     f"{what} (max abs err of val {u32_err(got[0], want[0])})")
+    return worst
+
+
+def tile_cases(engine):
+    """Every tile of a raw DecodeEngine as a ``check_x3`` case."""
+    out = []
+    for i, (bi, r0, rows, cw, wv, n, ctx) in enumerate(engine.tiles):
+        bk = engine.buckets[bi]
+        out.append((f"tile {i} ({bk.W}/{bk.N}/{bk.b}/"
+                    f"{'clean' if bk.clean else 'dirty'})",
+                    [cw, wv, n, ctx, engine.lengths, engine.offsets,
+                     engine.table], bk.b, bk.N, bk.clean))
+    return out
+
+
+@contextlib.contextmanager
+def count_plain_raw():
+    """Calls of decode_units_plain on card tensors while the block runs
+    (the dispatcher looks the plain version up in its module)."""
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    plain = dx.decode_units_plain
+    calls = []
+
+    def counted(cw, *a, **k):
+        if cw.device.type != "cpu":
+            calls.append(cw.shape)
+        return plain(cw, *a, **k)
+
+    dx.decode_units_plain = counted
+    try:
+        yield calls
+    finally:
+        dx.decode_units_plain = plain
+
+
+@contextlib.contextmanager
+def plain_x3():
+    """The raw engine's passes with X3's plain version (the torch ops the
+    engine ran before X3) in the place of the launch."""
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    kernel = dx.decode_units
+    dx.decode_units = dx.decode_units_plain
+    try:
+        yield
+    finally:
+        dx.decode_units = kernel
+
+
+def x3_tile_bytes(engine):
+    """Per tile of a raw DecodeEngine: (bytes that do not depend on the
+    dictionary, the tile's dictionary keys ctx * E + entry of its visited
+    codewords).  The fixed bytes: the in-range tokens, 4 B each, 12 B of
+    row metadata, and the outputs, n_out * 4 + 8 B a row.  Visited is
+    the plain version's chain scan on the card, once a dirty tile."""
+    import torch
+
+    from dint_tpu_torch.config import EXCEPTIONS
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    E = engine.lengths.shape[1]
+    out = []
+    for bi, r0, rows, cw, wv, n, ctx in engine.tiles:
+        bk = engine.buckets[bi]
+        tok = bk.cw[r0 : r0 + rows].astype(np.int64)
+        w_eff = np.clip(bk.w_valid[r0 : r0 + rows], 0, bk.W)
+        inr = np.arange(bk.W)[None, :] < w_eff[:, None]
+        if bk.clean:
+            vis = inr
+        else:
+            safe = torch.where(torch.from_numpy(inr).to(cw.device), cw,
+                               EXCEPTIONS)
+            vis = dx._chain_visited(safe, bk.b).cpu().numpy() & inr
+        keep = vis & (tok >= EXCEPTIONS)
+        c = bk.ctx[r0 : r0 + rows].astype(np.int64)[:, None]
+        keys = (c * E + np.minimum(tok, E - 1))[keep]
+        fixed = 4 * int(w_eff.sum()) + 12 * rows + rows * (4 * bk.N + 8)
+        out.append((fixed, np.unique(keys)))
+    return out
+
+
+def x3_group_bytes(tile_bytes, lengths_flat: np.ndarray, idx) -> int:
+    """Bytes of the tiles ``idx``: their fixed bytes, and each dictionary
+    entry they name once (its length and offset, and its first min(len,
+    16) table words)."""
+    fixed = sum(tile_bytes[i][0] for i in idx)
+    keys = np.unique(np.concatenate([tile_bytes[i][1] for i in idx]
+                                    or [np.zeros(0, np.int64)]))
+    words = np.minimum(lengths_flat[keys], 16).clip(0).sum()
+    return fixed + 8 * keys.shape[0] + 4 * int(words)
+
+
+def tile_times(eng, fn, iters: int, flush) -> list:
+    """Median ms of ``fn`` on each tile of a raw DecodeEngine: ``iters``
+    passes, each call alone between two CUDA events after the L2 was
+    flushed by reading ``flush``.  The card first sleeps TILE_SLEEP_CYCLES
+    a tile, so that the host has queued the pass's calls before the card
+    reaches them and an X3 call's events bracket the card's work on it
+    (the plain version's many launches a tile outrun that, so its time
+    is the call's as it runs)."""
+    import torch
+
+    def call(i):
+        bi, r0, rows, cw, wv, n, ctx = eng.tiles[i]
+        bk = eng.buckets[bi]
+        return fn(cw, wv, n, ctx, eng.lengths, eng.offsets, eng.table,
+                  b=bk.b, n_out=bk.N, assume_clean=bk.clean)
+
+    for i in range(len(eng.tiles)):
+        call(i)
+    torch.cuda.synchronize()
+    times = [[] for _ in eng.tiles]
+    for _ in range(iters):
+        events = []
+        torch.cuda._sleep(TILE_SLEEP_CYCLES * len(eng.tiles))
+        for i in range(len(eng.tiles)):
+            flush.amax()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            call(i)
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        for t, (a, b) in zip(times, events):
+            t.append(a.elapsed_time(b))
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
+def time_x3(dec, card_name: str) -> dict:
+    """X3 on a raw StreamDecoder's tiles, tile class by tile class and a
+    whole pass: each tile's median time (``tile_times``: X3_ITERS calls,
+    its plain version X3_PLAIN_ITERS), two turns of X3 then plain, summed
+    over the tiles of a class or of the pass, against the bytes bound."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    eng = dec.engine
+    tb = x3_tile_bytes(eng)
+    lengths_flat = eng.lengths.reshape(-1).cpu().numpy()
+    groups = {}
+    for i, (bi, *_rest) in enumerate(eng.tiles):
+        bk = eng.buckets[bi]
+        key = f"{bk.W}/{bk.N}/{bk.b}/{'clean' if bk.clean else 'dirty'}"
+        groups.setdefault(key, []).append(i)
+    groups["pass"] = list(range(len(eng.tiles)))
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
+    turns = {"x3": [], "plain": []}
+    for _ in range(2):
+        turns["x3"].append(tile_times(eng, dx.decode_units, X3_ITERS, flush))
+        turns["plain"].append(tile_times(eng, dx.decode_units_plain,
+                                         X3_PLAIN_ITERS, flush))
+    del flush
+    out = {}
+    for key, idx in groups.items():
+        ms = {k: sum(sum(t[i] for i in idx) for t in v) / len(v)
+              for k, v in turns.items()}
+        nbytes = x3_group_bytes(tb, lengths_flat, idx)
+        rows = sum(eng.tiles[i][2] for i in idx)
+        out[key] = {"tiles": len(idx), "rows": rows, "ms": ms["x3"],
+                    "plain_ms": ms["plain"],
+                    **bound_entry(nbytes, 0.0, card_name)}
+    return out
+
+
+def x4_edge_classes(device, seed: int = 5):
+    """[(label, ByteClasses)] for both group widths: every length 1-5,
+    sizes no multiple of four or of a block, an empty class between
+    others, bytes with the marker bit set and all ones."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    rng = np.random.default_rng(seed)
+    vpb = ud.X4_VALUES_PER_BLOCK
+    out = []
+    for gb in (7, 8):
+        classes = []
+        for L, N in ((1, 5), (2, vpb + 3), (3, 0), (4, 2 * vpb), (5, 7),
+                     (3, 1), (5, vpb - 1), (2, 4), (1, 3 * vpb + 2)):
+            b = rng.integers(0, 256, size=(N, L)).astype(np.uint8)
+            b[::3] |= 0x80
+            b[1::7] = 0xFF
+            classes.append((L, torch.from_numpy(b).to(device)))
+        out.append((f"edge classes, group_bits {gb}",
+                     ud.ByteClasses(classes, gb, device)))
+    return out
+
+
+def check_x4(cases) -> int:
+    """X4 equal to its plain version under torch.equal on every class of
+    each (label, ByteClasses) of ``cases``, for the three salts; return
+    the largest |kernel - plain| over the u32 values."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    worst = 0
+    for label, bc in cases:
+        for s in SALTS:
+            st = torch.tensor([s], dtype=torch.int64, device=bc.device)
+            got = [o.clone() for o in ud.byteclass_unpack(bc, st)]
+            want = bc.plain(st)
+            torch.cuda.synchronize()
+            for (L, _), g, p in zip(bc.classes, got, want):
+                diff = u32_err(g, p) if p.numel() else 0
+                worst = max(worst, diff)
+                if not torch.equal(g, p):
+                    fail(f"X4 disagrees with its plain version on {label}, "
+                         f"L={L}, salt {s:#x} (max abs err {diff})")
+    return worst
+
+
+def torch_op_byte_chain(eng, runs: int):
+    """ByteClassEngine.chain as it ran before X4 (and runs on the CPU):
+    a shift/or over each class and the sample of its first 8 values;
+    the same checksum."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    gb = eng.plan.group_bits
+    pvals = ud._u32_tensor(np.concatenate(
+        [v for _, v in eng.plan.partials] or [np.zeros(0, np.uint32)]),
+        eng.device)
+    salt = torch.ones((), dtype=torch.int64, device=eng.device)
+    for _ in range(runs):
+        s32 = ud._to_i32(salt)
+        samples = [ud._byteclass_unpack(b, gb, s32)[:8] for _, b in eng._dev]
+        samples.append(pvals + s32)
+        samp = torch.cat(samples)
+        total = samp.sum(dtype=torch.int32).to(torch.int64)
+        salt = (total - salt * samp.numel() + salt + 1) & MASK
+    return salt
+
+
+def byte_chain_turns(eng, runs: int, rounds: int = 2) -> dict:
+    """ms a run of the byte engine's chain through X4 and through the
+    torch-op chain, in turns (X4, torch ops, X4, torch ops), CUDA events
+    around each chain after one warm-up chain of each; the final
+    checksums equal."""
+    import torch
+
+    chains = {"x4": eng.chain, "plain": lambda r: torch_op_byte_chain(eng, r)}
+
+    def timed(chain):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        salt = chain(runs)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / runs, int(salt.item())
+
+    for chain in chains.values():
+        int(chain(2).item())
+    ms = {k: [] for k in chains}
+    salts = set()
+    for _ in range(rounds):
+        for k, chain in chains.items():
+            t, s = timed(chain)
+            ms[k].append(t)
+            salts.add(s)
+    if len(salts) != 1:
+        fail(f"the byte chain's checksum differs between X4 and the torch-op "
+             f"chain: {sorted(salts)}")
+    n = eng.plan.total_ints
+    out = {"runs": runs, "rounds": rounds}
+    for k, v in ms.items():
+        out[f"{k}_ms_per_run"] = v
+        out[f"{k}_ints_x_sec"] = n / (sum(v) / len(v) / 1e3)
+    return out
+
+
+def x4_phase(t: str, eng, plan, card_name: str, device="cuda") -> dict:
+    """A byte codec's wire engine after its decode: X4 against its plain
+    version on every class (three salts), the chain's checksum on the
+    card against the host's, X4 timed in turns with its plain version
+    (CUDA events, L2 flushed) against the bytes bound, and the chain in
+    turns with the torch-op chain."""
+    import torch
+
+    from dint_tpu_torch.kernels import unpack_device as ud
+
+    bc = eng._x4
+    err = check_x4([(f"zoo {t}", bc)]) if device != "cpu" else 0
+    card = int(eng.chain(X4_CHECK_RUNS).item())
+    host = int(ud.ByteClassEngine(plan, device="cpu").chain(
+        X4_CHECK_RUNS).item())
+    if card != host:
+        fail(f"zoo {t}: X4 chain checksum {card:#x} on the card, {host:#x} "
+             f"on the host")
+    rec = {"max_abs_err": err, "chain_checksum": card,
+           "classes": [[L, int(b.shape[0])] for L, b in bc.classes]}
+    if device == "cpu":
+        return rec
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device=device)
+    salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device=device)
+    ms = time_in_turns({"x4": lambda: ud.byteclass_unpack(bc, salt),
+                        "plain": lambda: bc.plain(salt)}, X4_ITERS, flush)
+    del flush
+    nbytes = sum(b.numel() for _, b in bc.classes) + 4 * sum(
+        o.numel() for o in bc.outs) + 8
+    rec.update({"ms": ms["x4"], "plain_ms": ms["plain"],
+                **bound_entry(nbytes, 0.0, card_name),
+                "turns": byte_chain_turns(eng, ZOO_TURN_RUNS)})
+    return rec
+
+
+def require_x3(counts, plain_calls, path: str, want: int) -> None:
+    """``path`` launched X3 exactly ``want`` times (one a tile a pass) and
+    ran its plain version on no card tensor; on the CPU (a rehearsal)
+    no launch."""
+    import torch
+
+    got = counts[X3]
+    if got != (want if torch.cuda.is_available() else 0):
+        fail(f"{got} X3 launches on the {path} path, not {want}")
+    if plain_calls:
+        fail(f"the {path} path ran decode_units_plain on the card "
+             f"{len(plain_calls)} times")
+    others = {k: v for k, v in counts.items() if v and k != X3}
+    if others:
+        fail(f"the {path} path launched other kernels: {others}")
+
+
+def raw_phases(data, base: str, smi: str, card_name: str, device="cuda"):
+    """Phase 15: ``decode_stream(engine="raw")`` for both DINT types,
+    exact over every list, launches counted from zero (X3 once a tile a
+    pass, no torch-op decode on the card); then the bucket census, X3
+    against its plain version on every tile and on the edge tiles, X3
+    timed a tile class and a pass in turns with its plain version against
+    the bytes bound, and torch.profiler traces of passes through X3 and
+    through the torch ops.  Returns ({type: record}, X3's kernels-line
+    entry or None on the CPU)."""
     import torch
 
     from dint_tpu_torch.index import stream as stream_mod
     from dint_tpu_torch.tools import decode
 
+    on_card = device != "cpu"
     out = {}
+    edge = [(c[0], x3_args(c, device), *c[2:]) for c in x3_edge_tiles()]
+    worst = check_x3(edge) if on_card else 0
+    launches = 0
     for t in TYPES:
         stream, dict_file = data[t]
         reset_launch_counts()
-        rec = decode.decode_stream(t, stream, dict_file, runs=RAW_RUNS,
-                                   check_collection=base + ".docs",
-                                   engine="raw", device=device)
+        with count_plain_raw() as plain_calls:
+            rec = decode.decode_stream(t, stream, dict_file, runs=RAW_RUNS,
+                                       check_collection=base + ".docs",
+                                       engine="raw", device=device)
         counts = launch_counts()
         if rec.get("check") != "ok":
             fail(f"raw {t}: collection check did not pass")
@@ -2452,28 +2990,60 @@ def raw_phases(data, base: str, smi: str, device="cuda"):
         dec = decode.StreamDecoder(arena, meta, view, t.startswith("multi"),
                                    "raw", device=device)
         census = dec.engine.census()
+        tiles = len(dec.engine.tiles)
+        require_x3(counts, plain_calls, f"raw {t}", tiles * (RAW_RUNS + 2))
+        launches += counts[X3]
 
-        def runs():
-            for _ in range(RAW_PROFILE_RUNS):
-                dec.decode_all()
+        def runs(k):
+            def go():
+                for _ in range(k):
+                    dec.decode_all()
+            return go
 
-        prof = profile_device(runs, RAW_PROFILE_RUNS,
+        prof = profile_device(runs(RAW_PROFILE_RUNS), RAW_PROFILE_RUNS,
                               os.path.join(CACHE, f"raw_trace.{t}.json"))
+        with plain_x3():
+            prof_plain = profile_device(
+                runs(RAW_PLAIN_PROFILE_RUNS), RAW_PLAIN_PROFILE_RUNS,
+                os.path.join(CACHE, f"raw_trace_plain.{t}.json"))
         out[t] = {
             "type": t, "ints_x_sec": rec["ints_x_sec"],
             "ns_x_int": rec["ns_x_int"],
             "num_integers": rec["num_integers"], "runs": rec["runs"],
             "cold_start_s": rec["cold_start_s"], "check": rec["check"],
-            "census": census, "profile": prof,
-            "kernel_launches": sum(counts.values()),
+            "census": census, "tiles": tiles, "profile": prof,
+            "profile_torch_ops": prof_plain,
+            "launches": {k: v for k, v in counts.items() if v},
             "device": rec["device"], "nvidia_smi": smi,
         }
+        if on_card:
+            worst = max(worst, check_x3(tile_cases(dec.engine)))
+            out[t]["x3"] = time_x3(dec, card_name)
+            p = out[t]["x3"]["pass"]
+            log(f"X3 pass of {t}: {p['ms'] * 1e3:.1f} us (bound "
+                f"{p['bound_ms'] * 1e3:.1f} us, plain {p['plain_ms']:.2f} ms)")
         log(f"raw {t}: {int(rec['ints_x_sec']) / 1e9:.3f} G ints/s, "
             f"{census['units_clean']} clean / {census['units_dirty']} dirty "
-            f"units, {sum(census['tiles'].values())} tiles")
+            f"units, {tiles} tiles")
         del dec
         torch.cuda.empty_cache()
-    return out
+    if not on_card:
+        return out, None
+    passes = [out[t]["x3"]["pass"] for t in TYPES]
+    x3 = {
+        "name": X3, "route": "cuda",
+        "source": "dint_tpu_torch/kernels/csrc/raw_decode.cu",
+        "replaces": "dint_tpu/kernels/decode_xla.py:121 (decode_units, run "
+                    "a tile at a time by kernels/pipeline.py:183)",
+        "launches": launches, "max_abs_err": worst,
+        "ms": sum(p["ms"] for p in passes),
+        "plain_ms": sum(p["plain_ms"] for p in passes),
+        **bound_entry(sum(p["bytes"] for p in passes), 0.0, card_name),
+        "library_ms": None, "launches_by_path": {"raw": launches},
+        "timed": "one pass over every tile of both bench streams",
+        "by_stream": {t: out[t]["x3"] for t in TYPES},
+    }
+    return out, x3
 
 
 def zoo_data(base: str):
@@ -2497,12 +3067,25 @@ def zoo_data(base: str):
     return paths, secs
 
 
-def zoo_phases(base: str, smi: str, device="cuda"):
+def require_x4(counts, path: str, want: int) -> None:
+    """``path`` launched X4 exactly ``want`` times (one a chained run and
+    one a whole decode); on the CPU (a rehearsal) none."""
+    import torch
+
+    got = counts[X4]
+    if got != (want if torch.cuda.is_available() else 0):
+        fail(f"{got} X4 launches on the {path} path, not {want}")
+
+
+def zoo_phases(base: str, smi: str, card_name: str, device="cuda"):
     """Phase 16: every zoo type through ``tools.decode``'s device path on
     the card, the ladder image at ZOO_RUNS chained runs and, for the
     types with one, the wire-structure engine at ZOO_WIRE_RUNS, each
-    checked against the collection list for list; then torch.profiler
-    traces of the chains of ZOO_PROFILED.  Returns the phase record."""
+    checked against the collection list for list; for the five byte
+    codecs X4 against its plain version (``x4_phase``) and on edge
+    classes; then torch.profiler traces of the chains of ZOO_PROFILED
+    and of the byte engine's torch-op chain.  Returns (the phase record,
+    X4's kernels-line entry or None on the CPU)."""
     import torch
 
     from dint_tpu_torch.index import stream as stream_mod
@@ -2535,10 +3118,19 @@ def zoo_phases(base: str, smi: str, device="cuda"):
             x1_path = not wire or t == "optpfor"
             require_x1(c, f"zoo {t} (wire={wire})",
                        2 * runs + 1 if x1_path else 0)
+            x4_path = wire and t in BYTE_WIRE
+            require_x4(c, f"zoo {t} (wire={wire})",
+                       2 * runs + 1 if x4_path else 0)
             n_ints = int(rec["num_integers"])
             r = {k: rec[k] for k in keys}
             r["image_bytes_per_int"] = int(rec["plan_bytes"]) / n_ints
             r["launches"] = {k: v for k, v in c.items() if v}
+            if x4_path:
+                arena, meta = stream_mod.load_stream(paths[t])
+                eng, plan = decode.zoo_device_engine(t, arena, meta, True,
+                                                     device)
+                r["x4"] = x4_phase(t, eng, plan, card_name, device)
+                del eng, plan
             entry["wire" if wire else "ladder"] = r
             torch.cuda.empty_cache()
         if device != "cpu":
@@ -2561,11 +3153,40 @@ def zoo_phases(base: str, smi: str, device="cuda"):
         profiles[key] = profile_device(
             lambda: eng.chain(ZOO_PROFILE_RUNS), ZOO_PROFILE_RUNS,
             os.path.join(CACHE, f"zoo_trace.{t}.{int(wire)}.json"))
+        if wire and t in BYTE_WIRE:
+            profiles[key + "/torch_ops"] = profile_device(
+                lambda: torch_op_byte_chain(eng, ZOO_PROFILE_RUNS),
+                ZOO_PROFILE_RUNS,
+                os.path.join(CACHE, f"zoo_trace.{t}.torch_ops.json"))
         del eng
         torch.cuda.empty_cache()
-    return {"types": types, "profiles": profiles, "data_s": data_s,
-            "encode_all_s": enc_s, "paths": paths,
-            "launches": counts, "nvidia_smi": smi}
+    rec = {"types": types, "profiles": profiles, "data_s": data_s,
+           "encode_all_s": enc_s, "paths": paths,
+           "launches": counts, "nvidia_smi": smi}
+    if device == "cpu":
+        return rec, None
+    edge_err = check_x4(x4_edge_classes(device))
+    by_codec = {t: types[t]["wire"]["x4"] for t in BYTE_WIRE}
+    main = by_codec[BYTE_WIRE[0]]
+    x4 = {
+        "name": X4, "route": "cuda",
+        "source": "dint_tpu_torch/kernels/csrc/byteclass_unpack.cu",
+        "replaces": "dint_tpu/kernels/unpack_device.py:841 "
+                    "(_byteclass_unpack, one a class in ByteClassEngine "
+                    ":766, chained by its timed_chain)",
+        "launches": counts[X4],
+        "max_abs_err": max([edge_err] + [r["max_abs_err"]
+                                         for r in by_codec.values()]),
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "bytes": main["bytes"], "library_ms": None,
+        "launches_by_path": {"zoo": counts[X4]},
+        "timed": f"{BYTE_WIRE[0]}'s wire plan (every codec in by_codec)",
+        "by_codec": {t: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bytes", "classes")}
+                     for t, r in by_codec.items()},
+    }
+    return rec, x4
 
 
 # ---------------------------------------------------------------------------
@@ -4040,15 +4661,15 @@ def main(argv=None) -> int:
 
     mark(t_start, "phases 8-14")
 
-    # 15. the raw chain-scan engine, both DINT types, exact
-    raw = raw_phases(data, base, smi)
+    # 15. the raw chain-scan engine, both DINT types, exact, through X3
+    raw, x3 = raw_phases(data, base, smi, kind)
     print(json.dumps({"raw": raw}), flush=True)
 
     mark(t_start, "phase 15")
 
     # 16. the zoo: eleven list types through the ladder image, eight
-    # through their wire engines, exact
-    zoo = zoo_phases(base, smi)
+    # through their wire engines (the five byte codecs' through X4), exact
+    zoo, x4 = zoo_phases(base, smi, kind)
     print(json.dumps({"zoo": {**zoo, "device": kind}}), flush=True)
 
     mark(t_start, "phase 16")
@@ -4205,10 +4826,10 @@ def main(argv=None) -> int:
     x2["max_abs_err"] = max(x2["max_abs_err"], x_errs[X2])
     for k in x1_kernels:
         k["launches"] = sum(k["launches_by_path"].values())
-    for k in (*x1_kernels, x2):
+    for k in (*x1_kernels, x2, x3, x4):
         if k["launches"] <= 0:
             fail(f"{k['name']} was never launched on a main path")
-    kernels += [k4, k5, *onehot, *x1_kernels, x2]
+    kernels += [k4, k5, *onehot, *x1_kernels, x2, x3, x4]
     summary = {"card": kind, "nvidia_smi": smi, "build_s": build_s,
                "kernels": kernels, "records": recs, "launches": counts,
                "chain_salt": salt, "profile": prof, "bench": bench_rec,

@@ -65,13 +65,27 @@ _SIGNATURES = {
         "dint_ef_decode": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
                            ctypes.c_int64, _P],
     },
+    "libdintraw.so": {
+        # cw, w_valid, n, ctx, lengths, offsets, table, val, produced,
+        # consumed, rows, W, E, T, n_out, b, assume_clean, stream
+        "dint_raw_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, _P],
+    },
+    "libdintbyte.so": {
+        # host class table, classes, group_bits, salt, stream
+        "dint_byteclass_unpack": [_P, ctypes.c_int, ctypes.c_int, _P, _P],
+    },
 }
 _SOURCES = {"libdintgather.so": "decode_gather.cu",
             "libdintserve.so": "serve_gather.cu",
             "libdintprobe.so": "store_probe.cu",
             "libdintonehot.so": "onehot_gather.cu",
             "libdintladder.so": "ladder_unpack.cu",
-            "libdintef.so": "ef_decode.cu"}
+            "libdintef.so": "ef_decode.cu",
+            "libdintraw.so": "raw_decode.cu",
+            "libdintbyte.so": "byteclass_unpack.cu"}
 LIBRARIES = tuple(_SOURCES)
 _libs = {}
 

@@ -1,5 +1,6 @@
-"""Batched DINT decode as dense tensor programs: the raw chain-scan
-engine, in PyTorch ops on the tensors' device.
+"""Batched DINT decode of the raw chain-scan engine: X3, a hand kernel
+a tile on the card (``csrc/raw_decode.cu``), and its plain version in
+PyTorch ops.
 
 The reference decode (vroom_env/dint_codecs.hpp:37-107) is a sequential
 pointer walk: read a codeword, copy a dictionary entry or consume an
@@ -29,6 +30,11 @@ Here it runs as three dense phases over a whole batch of encoded units
    reference's pre-zeroed buffer + 16-word memcpy trick
    (dict_posting_list.hpp:296, single_dictionary.hpp:230-238).
 
+``decode_units`` is the dispatcher: on CUDA tensors it launches X3 (one
+warp a row, the chain solved 32 tokens at a time by a warp scan of the
+same boolean matrices, see the source's note) or raises; on CPU tensors
+it runs ``decode_units_plain``, the three phases above as torch ops.
+
 u32 data travels as int32 bit patterns: the table and the decoded
 values are int32 tensors holding u32 bits, and the exception values are
 assembled in int64 and wrapped back.  Index rules follow the
@@ -39,7 +45,7 @@ reference drops go to one padded column that is sliced off.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -119,7 +125,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.to(torch.int64))
 
 
-def decode_units(
+def decode_units_plain(
     cw: torch.Tensor,  # (B, W) int32 token values
     w_valid: torch.Tensor,  # (B,) int32 valid token count per unit
     n: torch.Tensor,  # (B,) int32 ints to produce per unit
@@ -132,9 +138,10 @@ def decode_units(
     n_out: int = 256,
     assume_clean: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Decode a bucket of units on the tensors' device; returns
-    ((B, n_out) int32 holding the u32 values, (B,) int32 produced,
-    (B,) int32 tokens consumed to produce exactly n ints)."""
+    """X3's plain version: decode a bucket of units in torch ops on the
+    tensors' device; returns ((B, n_out) int32 holding the u32 values,
+    (B,) int32 produced, (B,) int32 tokens consumed to produce exactly n
+    ints)."""
     dev = cw.device
     B, W = cw.shape
     _, s_small, s_large = _steps_for(b)
@@ -230,6 +237,105 @@ def decode_units(
         torch.where(cw_last == 1, s_large, s_small))
     consumed = (q_last + step_last).to(torch.int32)
     return _to_i32(val), produced, consumed
+
+
+_X3_LIB = "libdintraw.so"
+
+
+def _x3_check(cw, w_valid, n, ctx, lengths, offsets, table, b: int,
+              n_out: int) -> None:
+    """Raise unless every input is a contiguous int32 tensor on cw's
+    device of the shapes ``decode_units`` takes, b is 8 or 16 and n_out
+    is at least 1."""
+    name = "decode_units"
+    if b not in (8, 16):
+        raise ValueError(f"{name}: b must be 8 or 16, got {b}")
+    if n_out < 1:
+        raise ValueError(f"{name}: n_out must be at least 1, got {n_out}")
+    if cw.dim() != 2 or cw.shape[1] < 1:
+        raise ValueError(f"{name}: cw must be (B, W) with W >= 1, got "
+                         f"{tuple(cw.shape)}")
+    B = cw.shape[0]
+    for what, x in (("w_valid", w_valid), ("n", n), ("ctx", ctx)):
+        if tuple(x.shape) != (B,):
+            raise ValueError(f"{name}: {what} must be ({B},), got "
+                             f"{tuple(x.shape)}")
+    if (lengths.dim() != 2 or tuple(offsets.shape) != tuple(lengths.shape)
+            or lengths.shape[1] <= EXCEPTIONS or lengths.shape[0] < 1):
+        raise ValueError(f"{name}: lengths and offsets must both be (C, E) "
+                         f"with E > {EXCEPTIONS}, got {tuple(lengths.shape)} "
+                         f"and {tuple(offsets.shape)}")
+    if table.dim() != 1 or table.shape[0] < 1:
+        raise ValueError(f"{name}: table must be (T,) with T >= 1, got "
+                         f"{tuple(table.shape)}")
+    for x in (cw, w_valid, n, ctx, lengths, offsets, table):
+        if x.dtype != torch.int32 or x.device != cw.device:
+            raise ValueError(f"{name}: every tensor must be int32 on "
+                             f"{cw.device}, got {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous")
+
+
+def decode_units(
+    cw: torch.Tensor,  # (B, W) int32 token values
+    w_valid: torch.Tensor,  # (B,) int32 valid token count per unit
+    n: torch.Tensor,  # (B,) int32 ints to produce per unit
+    ctx: torch.Tensor,  # (B,) int32 dictionary context per unit, in [0, C)
+    lengths: torch.Tensor,  # (C, E) int32 entry lengths
+    offsets: torch.Tensor,  # (C, E) int32 entry table offsets
+    table: torch.Tensor,  # (T,) int32 flat table, u32 bits, zero padded
+    *,
+    b: int = 16,
+    n_out: int = 256,
+    assume_clean: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """X3: decode a bucket of units, returning what
+    ``decode_units_plain`` returns ((B, n_out) int32 u32 values, (B,)
+    produced, (B,) consumed).  On a CUDA device ONE launch of
+    ``dint_raw_decode`` into fresh outputs (or the call raises); on the
+    CPU the plain version."""
+    _x3_check(cw, w_valid, n, ctx, lengths, offsets, table, b, n_out)
+    dev = cw.device
+    if dev.type == "cpu":
+        return decode_units_plain(cw, w_valid, n, ctx, lengths, offsets,
+                                  table, b=b, n_out=n_out,
+                                  assume_clean=assume_clean)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_units: unsupported device {dev}")
+    B, W = cw.shape
+    # the three outputs in one allocation: val, then produced, consumed
+    buf = torch.empty(B * (n_out + 2), dtype=torch.int32, device=dev)
+    val = buf[: B * n_out].view(B, n_out)
+    produced = buf[B * n_out : B * (n_out + 1)]
+    consumed = buf[B * (n_out + 1) :]
+    if B == 0:
+        return val, produced, consumed
+    from . import cuda_ext
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = cuda_ext.lib(_X3_LIB).dint_raw_decode(
+        cw.data_ptr(), w_valid.data_ptr(), n.data_ptr(), ctx.data_ptr(),
+        lengths.data_ptr(), offsets.data_ptr(), table.data_ptr(),
+        val.data_ptr(), produced.data_ptr(), consumed.data_ptr(), B, W,
+        lengths.shape[1], table.shape[0], n_out, b, int(assume_clean),
+        stream)
+    cuda_ext.check(_X3_LIB, "dint_raw_decode", rc)
+    decode_units.launches += 1
+    return val, produced, consumed
+
+
+decode_units.launches = 0
+
+KERNELS = {"X3_raw_decode": decode_units}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS.values():
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: w.launches for k, w in KERNELS.items()}
 
 
 def tokens_from_arena(

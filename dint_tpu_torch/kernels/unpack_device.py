@@ -24,7 +24,10 @@ into the values at load and re-packs them at ladder widths),
 ``plan_qmx`` (one class row per QMX instance, unpacked by the width's
 static row shifts, ``_qmx_fns``, torch ops), ``plan_simple16`` (one class per
 selector mode, ``Simple16Engine``) and ``plan_byteclass`` (every value's
-bytes in the dense array of its byte length, ``ByteClassEngine``).
+bytes in the dense array of its byte length, ``ByteClassEngine``).  On
+the card the byte engine's classes decode in ONE launch of X4, the hand
+kernel ``csrc/byteclass_unpack.cu`` (``byteclass_unpack`` over the
+engine's ``ByteClasses``); ``_byteclass_unpack`` is its plain version.
 
 u32 words travel as int32 bit patterns.  ``>>`` on int32 shifts
 arithmetically.  Where a field never crosses a word (the ladder, the
@@ -729,17 +732,6 @@ def ladder_rows(packed: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
 ladder_unpack.launches = 0
 ladder_rows.launches = 0
 
-KERNELS = {"X1_ladder_unpack": ladder_unpack, "X1_ladder_rows": ladder_rows}
-
-
-def reset_launch_counts() -> None:
-    for w in KERNELS.values():
-        w.launches = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return {k: w.launches for k, w in KERNELS.items()}
-
 
 class UnpackEngine:
     """Runs one UnpackPlan on ``device`` (class-major outputs).
@@ -1312,17 +1304,127 @@ def _byteclass_unpack(b: torch.Tensor, group_bits: int, salt) -> torch.Tensor:
     return _to_i32(v & _MASK).add_(salt)
 
 
-def _byteclass_fns(L: int, group_bits: int):
-    """The class decode without a salt: (N, L) bytes -> (N,) values."""
-    def decode(b):
-        return _byteclass_unpack(b, group_bits, 0)
+# ---------------------------------------------------------------------------
+# X4: the byte-class wire unpack (csrc/byteclass_unpack.cu), one launch a run
+# ---------------------------------------------------------------------------
 
-    return decode
+_X4_LIB = "libdintbyte.so"
+X4_MAX_CLASSES = 32
+X4_VALUES_PER_BLOCK = 1024  # 256 threads, four values each
+
+
+def byteclass_table(sizes: Sequence[int], lens: Sequence[int]) -> np.ndarray:
+    """X4's class table without its pointers: one row of eight int64 per
+    class, (src, out, N, L, block0, 0, 0, 0): class c takes
+    ceil(N / X4_VALUES_PER_BLOCK) blocks of the grid from ``block0``,
+    the running sum of the classes before it."""
+    if len(sizes) > X4_MAX_CLASSES:
+        raise ValueError(f"X4 takes at most {X4_MAX_CLASSES} classes a "
+                         f"launch, got {len(sizes)}")
+    t = np.zeros((len(sizes), 8), np.int64)
+    block0 = 0
+    for i, (N, L) in enumerate(zip(sizes, lens)):
+        t[i, 2:5] = (N, L, block0)
+        block0 += -(-int(N) // X4_VALUES_PER_BLOCK)
+    return t
+
+
+class ByteClasses:
+    """The length classes of one byte-class plan as X4 decodes them:
+    ``classes`` [(L, (N, L) uint8 tensor)] on one device and
+    ``group_bits`` (7 or 8); their outputs ``outs`` [(N,) int32], views of
+    one buffer ``buf`` (class c from ``offsets[c]``, a multiple of four
+    values) allocated once and rewritten by every ``byteclass_unpack``;
+    the class table.  The object holds every tensor the table points
+    at."""
+
+    def __init__(self, classes, group_bits: int, device):
+        self.device = torch.empty(0, device=device).device
+        if group_bits not in (7, 8):
+            raise ValueError(f"byteclass_unpack: group_bits must be 7 or 8, "
+                             f"got {group_bits}")
+        self.group_bits = group_bits
+        self.classes = [(int(L), b) for L, b in classes]
+        for L, b in self.classes:
+            if (b.dtype != torch.uint8 or b.device != self.device
+                    or b.dim() != 2 or b.shape[1] != L or L < 1):
+                raise ValueError(f"byteclass_unpack: class L={L} must be "
+                                 f"(N, {L}) uint8 on {self.device}, got "
+                                 f"{tuple(b.shape)} {b.dtype} on {b.device}")
+            if not b.is_contiguous() or (self.device.type == "cuda"
+                                         and b.data_ptr() % 4):
+                raise ValueError("byteclass_unpack: every class must be "
+                                 "contiguous and 4-byte aligned")
+        sizes = [b.shape[0] for _, b in self.classes]
+        padded = [-(-n // 4) * 4 for n in sizes]
+        self.offsets = np.cumsum([0] + padded)[:-1].astype(np.int64)
+        self.buf = torch.empty(sum(padded), dtype=torch.int32,
+                               device=self.device)
+        self.outs = [self.buf[o : o + n]
+                     for o, n in zip(self.offsets.tolist(), sizes)]
+        self.table = byteclass_table(sizes, [L for L, _ in self.classes])
+        if self.device.type == "cuda":
+            for row, (_, b), out in zip(self.table, self.classes, self.outs):
+                row[:2] = (b.data_ptr(), out.data_ptr())
+
+    def plain(self, salt: torch.Tensor) -> List[torch.Tensor]:
+        """X4's plain version: ``_byteclass_unpack`` class by class."""
+        s32 = _to_i32(salt.reshape(()) & _MASK)
+        return [_byteclass_unpack(b, self.group_bits, s32)
+                for _, b in self.classes]
+
+
+def byteclass_unpack(bc: ByteClasses, salt: torch.Tensor
+                     ) -> List[torch.Tensor]:
+    """X4: every class of ``bc`` unpacked into ``bc.outs`` with ``salt``
+    (a 1-element int64 tensor holding the u32 value) wrap-added; returns
+    ``bc.outs``.  On a CUDA device this is ONE launch of
+    ``dint_byteclass_unpack`` (or the call raises); on the CPU the plain
+    version."""
+    name = "byteclass_unpack"
+    if salt.dtype != torch.int64 or salt.numel() != 1:
+        raise ValueError(f"{name}: salt must be a 1-element int64 tensor")
+    if salt.device != bc.device:
+        raise ValueError(f"{name}: salt on {salt.device}, the classes on "
+                         f"{bc.device}")
+    if bc.device.type == "cpu":
+        for out, got in zip(bc.outs, bc.plain(salt)):
+            out.copy_(got)
+        return bc.outs
+    if bc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {bc.device}")
+    if not any(o.numel() for o in bc.outs):
+        return bc.outs
+    from . import cuda_ext
+
+    stream = torch.cuda.current_stream(bc.device).cuda_stream
+    rc = cuda_ext.lib(_X4_LIB).dint_byteclass_unpack(
+        bc.table.ctypes.data, bc.table.shape[0], bc.group_bits,
+        salt.data_ptr(), stream)
+    cuda_ext.check(_X4_LIB, "dint_byteclass_unpack", rc)
+    byteclass_unpack.launches += 1
+    return bc.outs
+
+
+byteclass_unpack.launches = 0
+
+KERNELS = {"X1_ladder_unpack": ladder_unpack, "X1_ladder_rows": ladder_rows,
+           "X4_byteclass_unpack": byteclass_unpack}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNELS.values():
+        w.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: w.launches for k, w in KERNELS.items()}
 
 
 class ByteClassEngine:
-    """Device decode of a ByteClassPlan on ``device``: per length class
-    one fused shift/or over the dense (N, L) byte array."""
+    """Device decode of a ByteClassPlan on ``device``: every length class
+    (the dense (N, L) byte arrays) in one ``byteclass_unpack`` a run, X4
+    on the card."""
 
     def __init__(self, plan: ByteClassPlan, device="cuda"):
         self.device = resolve_device(device)
@@ -1331,28 +1433,42 @@ class ByteClassEngine:
             (int(L), torch.from_numpy(np.ascontiguousarray(b)).to(self.device))
             for L, b, _ in plan.classes if b.shape[0]
         ]
+        self._x4 = ByteClasses(self._dev, plan.group_bits, self.device)
 
     def decode_classes(self) -> Dict[int, np.ndarray]:
-        gb = self.plan.group_bits
-        return {L: _byteclass_fns(L, gb)(b).cpu().numpy().view(np.uint32)
-                for L, b in self._dev}
+        salt = torch.zeros((), dtype=torch.int64, device=self.device)
+        outs = byteclass_unpack(self._x4, salt)
+        return {L: out.cpu().numpy().view(np.uint32)
+                for (L, _), out in zip(self._dev, outs)}
+
+    def _sample_index(self) -> torch.Tensor:
+        """Positions in X4's buffer of each class's first min(8, N)
+        values, the chain's sample."""
+        idx = [np.arange(o, o + min(8, b.shape[0]))
+               for o, (_, b) in zip(self._x4.offsets, self._dev)]
+        return torch.from_numpy(np.concatenate(
+            idx or [np.zeros(0, np.int64)])).to(self.device)
 
     def chain(self, runs: int) -> torch.Tensor:
         """``runs`` decodes back to back from salt 1, every length class
-        and the salted partial tails materialised each run; the checksum
-        is the u32 sum of each class's first 8 values and of the tails,
-        minus the salt's share, plus salt + 1, and is the next run's
-        salt.  Returns it as a 0-d int64 device tensor holding a u32
-        value."""
-        gb = self.plan.group_bits
+        (X4's one launch) and the salted partial tails materialised each
+        run; the checksum is the u32 sum of each class's first 8 values
+        and of the tails, minus the salt's share, plus salt + 1, and is
+        the next run's salt.  Returns it as a 0-d int64 device tensor
+        holding a u32 value."""
         pvals = _u32_tensor(np.concatenate(
             [v for _, v in self.plan.partials] or [np.zeros(0, np.uint32)]
         ), self.device)
+        sample = self._sample_index() if self._dev else None
         salt = torch.ones((), dtype=torch.int64, device=self.device)
         for _ in range(runs):
             s32 = _to_i32(salt)
-            samples = [_byteclass_unpack(b, gb, s32)[:8]
-                       for _, b in self._dev]
+            samples = []
+            if sample is not None:
+                # the chain reads its sample before the next run's launch
+                # rewrites the buffer, on the same stream
+                byteclass_unpack(self._x4, salt)
+                samples.append(torch.index_select(self._x4.buf, 0, sample))
             samples.append(pvals + s32)
             samp = torch.cat(samples)
             total = samp.sum(dtype=torch.int32).to(torch.int64)

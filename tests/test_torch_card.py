@@ -13,18 +13,25 @@ launch against its plain version and the portable branch,
 ``tools.scale_test`` at a tiny size through ``--decode`` and ``--serve``
 with the launches of its kernels counted, K3 (the zero class) alone and
 inside the fused class launch at every n_out against their plain
-versions with a guard row after the output, and X2 (the EF decode)
-against its plain version and the values written.
+versions with a guard row after the output, X2 (the EF decode)
+against its plain version and the values written, X3 (the raw decode a
+tile) against its plain version on ``chip_smoke``'s edge tiles and on a
+small collection's raw engine (every list exact, one launch a tile),
+and X4 (the byte-class wire unpack) against its plain version on edge
+classes and through the vbyte wire engine (every value exact, the chain
+checksum the host's).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import x2_edge_arena
+from chip_smoke import (make_data, x2_edge_arena, x3_args, x3_edge_tiles,
+                        x4_edge_classes)
 from dint_tpu_torch.codecs import ef, ef_device
 from dint_tpu_torch.config import BLOCK_SIZE
 from dint_tpu_torch.kernels import decode_local as dl
+from dint_tpu_torch.kernels import decode_xla as dx
 from dint_tpu_torch.kernels import unpack_device as ud
 from dint_tpu_torch.utils.bitio import BitBuilder
 
@@ -241,3 +248,99 @@ def test_x2_equals_plain_and_the_values(card):
     for lists, vs in kept:
         for a, v in zip(lists, vs):
             np.testing.assert_array_equal(a, v)
+
+
+@pytest.mark.cuda
+def test_x3_equals_plain_on_edge_tiles(card):
+    """X3 (one launch a call) on every edge tile (b = 16 and 8, dirty and
+    clean, W no multiple of 32, w_valid 0 and 1, window-edge exceptions,
+    runs, wrapping table offsets): val, produced and consumed equal to
+    ``decode_units_plain``."""
+    for label, args, b, n_out, clean in x3_edge_tiles():
+        ts = x3_args((label, args), card)
+        before = dx.decode_units.launches
+        got = dx.decode_units(*ts, b=b, n_out=n_out, assume_clean=clean)
+        assert dx.decode_units.launches == before + 1
+        torch.cuda.synchronize()
+        want = dx.decode_units_plain(*ts, b=b, n_out=n_out,
+                                     assume_clean=clean)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+
+
+@pytest.mark.cuda
+def test_raw_engine_runs_on_x3(card, tmp_path):
+    """A small collection's two DINT streams through the raw engine on the
+    card: every list equal to the collection, X3 once a tile a pass, each
+    tile equal to the plain version."""
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.tools import common, decode
+
+    base, data = make_data(str(tmp_path / "c"), 2026, 300, 200_000, 300.0)
+    expect, _ = common.gap_lists_of(base + ".docs")
+    for t, (stream, dict_file) in data.items():
+        arena, meta = stream_mod.load_stream(stream)
+        view = decode.load_dictionary(t, dict_file).decode_view()
+        dec = decode.StreamDecoder(arena, meta, view, t.startswith("multi"),
+                                   "raw", device=card)
+        before = dx.decode_units.launches
+        for got, want in zip(dec.gather_lists(), expect):
+            np.testing.assert_array_equal(got, want)
+        assert dx.decode_units.launches == before + len(dec.engine.tiles)
+        eng = dec.engine
+        for bi, r0, rows, cw, wv, n, ctx in eng.tiles:
+            bk = eng.buckets[bi]
+            args = (cw, wv, n, ctx, eng.lengths, eng.offsets, eng.table)
+            kw = dict(b=bk.b, n_out=bk.N, assume_clean=bk.clean)
+            for g, w in zip(dx.decode_units(*args, **kw),
+                            dx.decode_units_plain(*args, **kw)):
+                assert torch.equal(g, w), (t, bi, r0)
+
+
+@pytest.mark.cuda
+def test_x4_equals_plain_on_edge_classes(card):
+    """X4 (one launch a call) on classes of every length 1-5 in both group
+    widths, with an empty class and sizes no multiple of four or of a
+    block, for the three salts: equal to its plain version."""
+    for label, bc in x4_edge_classes(card):
+        for s in SALTS:
+            salt = torch.tensor([s], dtype=torch.int64, device=card)
+            before = ud.byteclass_unpack.launches
+            got = [o.clone() for o in ud.byteclass_unpack(bc, salt)]
+            assert ud.byteclass_unpack.launches == before + 1
+            torch.cuda.synchronize()
+            for g, w in zip(got, bc.plain(salt)):
+                assert torch.equal(g, w), (label, s)
+
+
+@pytest.mark.cuda
+def test_byte_wire_engine_runs_on_x4(card, tmp_path):
+    """vbyte and varintgb lists through ByteClassEngine on the card: every
+    value in stream order equal to the lists, one X4 launch a chained
+    run, the chain checksum equal to the host engine's."""
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.index import vroom_zoo
+
+    rng = np.random.default_rng(3)
+    lists = []
+    for n in (1, 9, 300, 5000):
+        v = rng.integers(0, 1 << 10, n).astype(np.uint64)
+        v[rng.integers(0, n, max(1, n // 5))] = rng.integers(
+            1 << 20, 1 << 32, max(1, n // 5), dtype=np.uint64)
+        lists.append(v.astype(np.uint32))
+    for codec in ("vbyte", "varintgb"):
+        path = str(tmp_path / f"s.{codec}")
+        payloads = [vroom_zoo.encode_list_zoo(codec, g)[0] for g in lists]
+        stream_mod.write_stream(path, payloads, [len(g) for g in lists],
+                                [int(g.astype(np.int64).sum())
+                                 for g in lists])
+        arena, meta = stream_mod.load_stream(path)
+        plan = ud.plan_byteclass(codec, arena, meta)
+        eng = ud.ByteClassEngine(plan, device=card)
+        np.testing.assert_array_equal(eng.decode_all_ordered(),
+                                      np.concatenate(lists))
+        before = ud.byteclass_unpack.launches
+        card_salt = int(eng.chain(4).item())
+        assert ud.byteclass_unpack.launches == before + 4
+        host = ud.ByteClassEngine(plan, device="cpu")
+        assert card_salt == int(host.chain(4).item())

@@ -108,7 +108,8 @@ def test_ladder_unpack_launches_nothing_on_the_cpu():
     t_ud.ladder_unpack(lc, salt64(1))
     t_ud.ladder_rows({8: torch.zeros((3, 64), dtype=torch.int32)})
     assert t_ud.launch_counts() == {"X1_ladder_unpack": 0,
-                                    "X1_ladder_rows": 0}
+                                    "X1_ladder_rows": 0,
+                                    "X4_byteclass_unpack": 0}
 
 
 def test_ladder_unpack_refuses_what_the_kernel_does_not_take():

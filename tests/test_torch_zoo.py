@@ -658,7 +658,7 @@ def test_byteclass_unpack_matches_reference(L, gb):
     want = np.asarray(j_ud._byteclass_fns(L, gb)[0](
         tuple(jnp.asarray(np.ascontiguousarray(b[:, i])) for i in range(L)),
         np.uint32(0)))
-    got = t_ud._byteclass_fns(L, gb)(torch.from_numpy(b))
+    got = t_ud._byteclass_unpack(torch.from_numpy(b), gb, 0)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
