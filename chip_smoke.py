@@ -13,6 +13,7 @@ single-device entry.
 
     python3 chip_smoke.py [--seed 2026] [--out FILE] [--k5-old SOURCE]
         [--k3-old SOURCE [--k3-old-scale INTS]] [--x2-old SOURCE]
+        [--x3-old SOURCE]
 
 Run from the root of a checkout.  Phases, each fatal on failure:
 
@@ -126,18 +127,23 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 14. torch.profiler traces of 3 serving passes, unpruned and pruned;
 15. raw engine: ``decode_stream(..., engine="raw", runs=100,
     check_collection, device="cuda")`` for both types, exact over every
-    list, launches counted from zero: X3 once a tile a pass (tiles x
-    102), ``decode_units_plain`` never on the card, no other kernel; the
-    bucket census (units clean and dirty, tiles per (W, N, b)); X3
+    list, launches counted from zero: X3 once a pass (102), one launch
+    over every tile, ``decode_units_plain`` never on the card, no other
+    kernel; the bucket census (units clean and dirty, tiles per (W, N,
+    b)) and the pass's blocks (rows a block, warp rows); X3's pass
     against its plain version under ``torch.equal`` (val, produced,
-    consumed) on every tile of both streams and on edge tiles (b 16 and
+    consumed) on every tile of both streams, and on edge tiles (b 16 and
     8, dirty and clean, W no multiple of 32, w_valid 0 and 1, exceptions
-    across window and step edges, runs, wrapping table offsets); X3 timed
-    a tile class and a whole pass in turns with its plain version (each
-    tile's median of CUDA events, L2 flushed, summed) against the bytes
-    bound; torch.profiler traces of 20
-    passes through X3 and 2 through its plain version (wall against
-    busy);
+    across X3's run, warp and chunk edges, runs, table offsets that wrap)
+    one a launch and all in one mixed pass; X3 timed a census class
+    (the class's tiles alone in a pass table) and a whole pass, one
+    launch, median of 50, L2 flushed, against the bytes bound and its
+    plain version (each tile's median, summed); with ``--x3-old SOURCE``
+    (the first body, one launch a tile) that body held to the plain
+    version on every tile and its launches of a class and of a pass
+    timed in turns with the shipped one (queued behind a card sleep, one
+    L2 flush); torch.profiler traces of 20 passes through X3 and 2
+    through its plain version (wall against busy);
 16. zoo: the eleven ``VROOM_ZOO`` types encoded from the phase-2
     collection (``tools.encode.encode_zoo_many``: every type's lists in
     one pool of a process per core, under ``.chip_smoke/zoo/``), each
@@ -305,16 +311,17 @@ PROFILE_RUNS = 200
 LADDER_PROFILE_RUNS = 50
 ABLATE_RUNS = 20  # chained runs a variant, tools/kernel_ablate's default
 ONEHOT_PLAIN_ROWS = 512  # plan rows K6/K7 are held to their plain version on
-# The raw engine launches X3 once a tile (16 and 90 tiles a pass on the
+# The raw engine launches X3 once a pass (over the 16 and 90 tiles of the
 # two bench streams) and fetches one value a pass, as the reference does;
 # its torch-op version (X3's plain version) took tenths of a second a
 # pass, so it is profiled over a couple of passes only.
 RAW_RUNS = 100
 RAW_PROFILE_RUNS = 20
 RAW_PLAIN_PROFILE_RUNS = 2
-X3_ITERS = 50  # CUDA-event timings of X3 on each tile
-X3_PLAIN_ITERS = 5  # of its plain version (a multi_packed pass: ~0.4 s)
-TILE_SLEEP_CYCLES = 400_000  # ~0.2 ms of card sleep a tile of a timed pass
+X3_ITERS = 50  # CUDA-event timings of an X3 pass (and the first body's)
+X3_PLAIN_ITERS = 5  # of its plain version a tile (a multi_packed pass ~0.4 s)
+TILE_SLEEP_CYCLES = 400_000  # ~0.2 ms of card sleep a tile of the first
+# body's timed pass, so that the host has queued its launches
 X4_ITERS = 50  # CUDA-event timings of X4 and its plain version
 X4_CHECK_RUNS = 3  # chained runs whose checksum the card and host share
 BYTE_WIRE = ("vbyte", "maskedvbyte", "streamvbyte", "varintgb",
@@ -371,7 +378,7 @@ FUSED = "K123_decode_classes"  # the engines' one launch over the classes
 X1 = "X1_ladder_unpack"  # the ladder engines' one launch a run
 X1_ROWS = "X1_ladder_rows"  # X1's entry for the sharded step's rows
 X2 = "X2_ef_decode"
-X3 = "X3_raw_decode"  # the raw engine's launch a tile
+X3 = "X3_raw_decode"  # the raw engine's launch a pass
 X4 = "X4_byteclass_unpack"  # the byte codecs' wire engine's launch a run
 LADDER_TURN_RUNS = 500  # chained runs a turn, X1 beside the torch-op chain
 ZOO_TURN_RUNS = 200
@@ -2457,7 +2464,7 @@ def serve_phases(base: str, paths, card_name: str, trace_path: str):
 
 
 # ---------------------------------------------------------------------------
-# X3 (the raw decode a tile) and X4 (the byte-class wire unpack)
+# X3 (the raw decode of a pass) and X4 (the byte-class wire unpack)
 # ---------------------------------------------------------------------------
 
 
@@ -2465,8 +2472,8 @@ def x3_view(seed: int = 17, contexts: int = 2, table_words: int = 5000):
     """(lengths, offsets u32, table u32) of a dictionary that holds every
     entry length 0-16, the five runs 16-256 at EXCEPTIONS.., entries of
     16 words, zero-length entries, table words with bit 31 set, and
-    offsets past the table and past 2^31 (the index wraps, then is
-    clamped)."""
+    offsets past the table, past 2^31 (the index wraps, then is clamped)
+    and just below 2^31 on 16-word entries (offset + k wraps in int32)."""
     from dint_tpu_torch.config import EXCEPTIONS, NUM_ENTRIES
 
     rng = np.random.default_rng(seed)
@@ -2475,12 +2482,14 @@ def x3_view(seed: int = 17, contexts: int = 2, table_words: int = 5000):
     lengths[:, EXCEPTIONS : EXCEPTIONS + 5] = (256, 128, 64, 32, 16)
     lengths[:, 7:40] = 16
     lengths[:, 40:60] = 0
+    lengths[:, 85:90] = 16
     lengths[:, :EXCEPTIONS] = 1
     offsets = rng.integers(0, table_words - 16,
                            size=(contexts, NUM_ENTRIES)).astype(np.uint32)
     offsets[:, 60:70] = table_words + rng.integers(0, 40, 10)
     offsets[:, 70:80] = (1 << 32) - rng.integers(1, 20, 10)
     offsets[:, 80:85] = (1 << 31) + rng.integers(0, 20, 5)
+    offsets[:, 85:90] = (1 << 31) - rng.integers(1, 16, 5)
     table = rng.integers(0, 1 << 32, size=table_words + 16,
                          dtype=np.uint64).astype(np.uint32)
     table[-16:] = 0
@@ -2489,9 +2498,9 @@ def x3_view(seed: int = 17, contexts: int = 2, table_words: int = 5000):
 
 def x3_walk_rows(b: int, rows: int, W: int, seed: int):
     """(cw, w_valid) of ``rows`` token rows a walk decodes: codewords
-    (runs, 16-word, zero-length and other entries), both exception
-    markers with their payload tokens, an exception as some rows' last
-    codeword, noise past w_valid."""
+    (runs, 16-word, zero-length and other entries, offsets that wrap),
+    both exception markers with their payload tokens, an exception as
+    some rows' last codeword, noise past w_valid."""
     from dint_tpu_torch.config import EXCEPTIONS
     from dint_tpu_torch.kernels import decode_xla as dx
 
@@ -2511,7 +2520,7 @@ def x3_walk_rows(b: int, rows: int, W: int, seed: int):
             else:
                 step = 1
                 mark = int(rng.choice([rng.integers(EXCEPTIONS, 7),
-                                       rng.integers(7, 85),
+                                       rng.integers(7, 90),
                                        rng.integers(EXCEPTIONS, top)]))
             if q + step > W:
                 break
@@ -2527,19 +2536,25 @@ def x3_walk_rows(b: int, rows: int, W: int, seed: int):
     return cw, w_valid
 
 
-def x3_straddle_rows(b: int, W: int = 165):
-    """(cw, w_valid): rows whose exception ends at a 32-token window's
-    edge plus o, for o = 0 .. D - 1, both markers, at edges inside X3's
-    block step of 128 tokens and between two steps."""
+# X3's edges: a block row thread's run of 4 tokens, a warp row's chunk of
+# 64 (32 runs of 2), a block row's warp of 128 and its chunk of 1024, and
+# two such chunks
+X3_EDGES = (4, 64, 128, 1024, 2048)
+
+
+def x3_straddle_rows(b: int, W: int = 2053, edges=X3_EDGES):
+    """(cw, w_valid): rows whose exception ends at an edge plus o, for
+    o = 0 .. D - 1, both markers, at each of ``edges`` below W (X3's
+    thread runs, warp scans and chunks); W no multiple of 32."""
     from dint_tpu_torch.kernels import decode_xla as dx
 
     _, small, large = dx._steps_for(b)
     rows, wv = [], []
-    for edge in (32, 64, 128):
+    for edge in edges:
         for mark, step in ((0, small), (1, large)):
             for o in range(large):
                 p = edge + o - step
-                if p < 0:
+                if p < 0 or edge + large >= W:
                     continue
                 r = np.full(W, 9, np.int32)
                 r[p] = mark
@@ -2553,7 +2568,9 @@ def x3_edge_tiles(seed: int = 13):
     """[(label, (cw, w_valid, n, ctx, lengths, offsets, table) numpy,
     b, n_out, assume_clean)]: X3's edge cases at b = 16 and 8, dirty and
     clean, W no multiple of 32, w_valid 0 and 1, n below and above what
-    a row produces, n = 0 and n_out, window-edge exceptions, runs."""
+    a row produces, n = 0 and n_out, exceptions across X3's run, warp and
+    chunk edges in rows a warp takes and rows a block takes, runs, one
+    dictionary for all (so that they also make one mixed pass)."""
     from dint_tpu_torch.config import EXCEPTIONS
 
     lengths, offsets, table = x3_view(seed)
@@ -2576,14 +2593,21 @@ def x3_edge_tiles(seed: int = 13):
         cw, wv = x3_walk_rows(b, 9, 1000, seed + 2 * b)
         add(f"b={b} dirty W=1000", cw, wv, b, 1024, False,
             n=np.full(9, 700, np.int32))
-        cw, wv = x3_straddle_rows(b)
-        add(f"b={b} window-edge exceptions", cw, wv, b, 1024, False,
-            n=np.full(cw.shape[0], 1024, np.int32))
+        cw, wv = x3_walk_rows(b, 5, 5000, seed + 3 * b)
+        add(f"b={b} dirty W=5000", cw, wv, b, 4096, False,
+            n=np.asarray([4096, 3000, 1, 0, 2500], np.int32))
+        for W, edges in ((2053, X3_EDGES), (205, X3_EDGES[:3])):
+            cw, wv = x3_straddle_rows(b, W, edges)
+            add(f"b={b} chunk-edge exceptions W={W}", cw, wv, b, 1024, False,
+                n=np.full(cw.shape[0], 1024, np.int32))
         cw = rng.integers(EXCEPTIONS, 1 << b, size=(37, 70)).astype(np.int32)
-        cw[:, ::5] = rng.integers(EXCEPTIONS, 85, size=cw[:, ::5].shape)
+        cw[:, ::5] = rng.integers(EXCEPTIONS, 90, size=cw[:, ::5].shape)
         wv = rng.integers(0, 71, 37).astype(np.int32)
         wv[:3] = (0, 1, 70)
         add(f"b={b} clean W=70", cw, wv, b, 256, True)
+        cw = rng.integers(EXCEPTIONS, 90, size=(4, 3000)).astype(np.int32)
+        add(f"b={b} clean W=3000", cw, np.asarray([3000, 2049, 2048, 5],
+                                                  np.int32), b, 8192, True)
         runs = np.where(rng.random((6, 100)) < 0.5,
                         rng.integers(EXCEPTIONS, EXCEPTIONS + 5, (6, 100)),
                         rng.integers(7, 40, (6, 100))).astype(np.int32)
@@ -2592,6 +2616,24 @@ def x3_edge_tiles(seed: int = 13):
             add(f"b={b} runs, clean={clean}", runs, wv, b, 4096, clean,
                 n=np.asarray([4096, 100, 4000, 300, 256, 8192], np.int32))
     return cases
+
+
+def x3_edge_pass(device):
+    """Every ``x3_edge_tiles`` case as one mixed pass (b 16 and 8, clean
+    and dirty, rows a warp and rows a block take) on ``device``: (labels,
+    PassTable)."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    cases = x3_edge_tiles()
+    lengths, offsets, table = cases[0][1][4:]
+    up = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a).view(np.int32)).to(device)
+    tiles = [(cw, wv, n, ctx, b, n_out, clean)
+             for _, (cw, wv, n, ctx, *_d), b, n_out, clean in cases]
+    return ([c[0] for c in cases],
+            dx.pass_table(tiles, up(lengths), up(offsets), up(table)))
 
 
 def x3_args(case, device):
@@ -2631,22 +2673,41 @@ def check_x3(cases) -> int:
     return worst
 
 
-def tile_cases(engine):
-    """Every tile of a raw DecodeEngine as a ``check_x3`` case."""
+def check_x3_pass(labels, pt) -> int:
+    """X3's one launch over the pass table ``pt`` equal to its plain version
+    (``decode_units_plain`` tile by tile) under torch.equal on every tile
+    (val, produced, consumed); return the largest |kernel - plain| over
+    the u32 values."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    got = dx.decode_pass(pt)
+    torch.cuda.synchronize()
+    worst = 0
+    for label, g, w in zip(labels, got, dx.decode_pass_plain(pt)):
+        worst = max(worst, u32_err(g[0], w[0]))
+        for a, b, what in zip(g, w, ("val", "produced", "consumed")):
+            if not torch.equal(a, b):
+                fail(f"X3's pass disagrees with its plain version on {label}: "
+                     f"{what} (max abs err of val {u32_err(g[0], w[0])})")
+    return worst
+
+
+def tile_labels(engine) -> list:
+    """A label for each tile of a raw DecodeEngine."""
     out = []
-    for i, (bi, r0, rows, cw, wv, n, ctx) in enumerate(engine.tiles):
+    for i, (bi, *_rest) in enumerate(engine.tiles):
         bk = engine.buckets[bi]
-        out.append((f"tile {i} ({bk.W}/{bk.N}/{bk.b}/"
-                    f"{'clean' if bk.clean else 'dirty'})",
-                    [cw, wv, n, ctx, engine.lengths, engine.offsets,
-                     engine.table], bk.b, bk.N, bk.clean))
+        out.append(f"tile {i} ({bk.W}/{bk.N}/{bk.b}/"
+                   f"{'clean' if bk.clean else 'dirty'})")
     return out
 
 
 @contextlib.contextmanager
 def count_plain_raw():
     """Calls of decode_units_plain on card tensors while the block runs
-    (the dispatcher looks the plain version up in its module)."""
+    (the pass's plain version looks it up in its module)."""
     from dint_tpu_torch.kernels import decode_xla as dx
 
     plain = dx.decode_units_plain
@@ -2667,15 +2728,15 @@ def count_plain_raw():
 @contextlib.contextmanager
 def plain_x3():
     """The raw engine's passes with X3's plain version (the torch ops the
-    engine ran before X3) in the place of the launch."""
+    engine ran before X3, tile by tile) in the place of the launch."""
     from dint_tpu_torch.kernels import decode_xla as dx
 
-    kernel = dx.decode_units
-    dx.decode_units = dx.decode_units_plain
+    kernel = dx.decode_pass
+    dx.decode_pass = dx.decode_pass_plain
     try:
         yield
     finally:
-        dx.decode_units = kernel
+        dx.decode_pass = kernel
 
 
 def x3_tile_bytes(engine):
@@ -2722,13 +2783,11 @@ def x3_group_bytes(tile_bytes, lengths_flat: np.ndarray, idx) -> int:
 
 
 def tile_times(eng, fn, iters: int, flush) -> list:
-    """Median ms of ``fn`` on each tile of a raw DecodeEngine: ``iters``
-    passes, each call alone between two CUDA events after the L2 was
-    flushed by reading ``flush``.  The card first sleeps TILE_SLEEP_CYCLES
-    a tile, so that the host has queued the pass's calls before the card
-    reaches them and an X3 call's events bracket the card's work on it
-    (the plain version's many launches a tile outrun that, so its time
-    is the call's as it runs)."""
+    """Median ms of ``fn`` (X3's plain version) on each tile of a raw
+    DecodeEngine: ``iters`` passes, each call alone between two CUDA
+    events after the L2 was flushed by reading ``flush``; the plain
+    version's many launches a tile outrun any queue, so its time is the
+    call's as it runs."""
     import torch
 
     def call(i):
@@ -2743,7 +2802,6 @@ def tile_times(eng, fn, iters: int, flush) -> list:
     times = [[] for _ in eng.tiles]
     for _ in range(iters):
         events = []
-        torch.cuda._sleep(TILE_SLEEP_CYCLES * len(eng.tiles))
         for i in range(len(eng.tiles)):
             flush.amax()
             a = torch.cuda.Event(enable_timing=True)
@@ -2758,11 +2816,129 @@ def tile_times(eng, fn, iters: int, flush) -> list:
     return [sorted(t)[len(t) // 2] for t in times]
 
 
-def time_x3(dec, card_name: str) -> dict:
-    """X3 on a raw StreamDecoder's tiles, tile class by tile class and a
-    whole pass: each tile's median time (``tile_times``: X3_ITERS calls,
-    its plain version X3_PLAIN_ITERS), two turns of X3 then plain, summed
-    over the tiles of a class or of the pass, against the bytes bound."""
+# the C entry of the first X3 body (one launch a tile): cw, w_valid, n, ctx,
+# lengths, offsets, table, val, produced, consumed, rows, W, E, T, n_out, b,
+# assume_clean, stream
+X3_OLD_SIGNATURES = {"dint_raw_decode": [
+    ctypes.c_void_p] * 10 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]}
+
+
+class OldX3:
+    """An earlier X3 body with the one-tile C entry ``dint_raw_decode``
+    (``--x3-old``), over a raw DecodeEngine's tiles: one launch a tile
+    into outputs allocated once; nothing is counted."""
+
+    def __init__(self, src: str, eng):
+        import torch
+
+        from dint_tpu_torch.kernels import cuda_ext
+
+        self.lib = cuda_ext.variant("libdintraw.so", src, X3_OLD_SIGNATURES)
+        self.eng = eng
+        self.outs = []
+        for bi, r0, rows, *_rest in eng.tiles:
+            bk = eng.buckets[bi]
+            buf = torch.empty(rows * (bk.N + 2), dtype=torch.int32,
+                              device=eng.lengths.device)
+            self.outs.append((buf[: rows * bk.N].view(rows, bk.N),
+                              buf[rows * bk.N : rows * (bk.N + 1)],
+                              buf[rows * (bk.N + 1) :]))
+
+    def tile(self, i: int):
+        import torch
+
+        from dint_tpu_torch.kernels import cuda_ext
+
+        eng = self.eng
+        bi, r0, rows, cw, wv, n, ctx = eng.tiles[i]
+        bk = eng.buckets[bi]
+        val, produced, consumed = self.outs[i]
+        rc = self.lib.dint_raw_decode(
+            cw.data_ptr(), wv.data_ptr(), n.data_ptr(), ctx.data_ptr(),
+            eng.lengths.data_ptr(), eng.offsets.data_ptr(),
+            eng.table.data_ptr(), val.data_ptr(), produced.data_ptr(),
+            consumed.data_ptr(), rows, bk.W, eng.lengths.shape[1],
+            eng.table.shape[0], bk.N, bk.b, int(bk.clean),
+            torch.cuda.current_stream().cuda_stream)
+        cuda_ext.check("libdintraw.so", "dint_raw_decode (old)", rc)
+        return self.outs[i]
+
+    def check(self) -> int:
+        """Every tile equal to the plain version under torch.equal; the
+        largest |old - plain| over the u32 values."""
+        import torch
+
+        from dint_tpu_torch.kernels import decode_xla as dx
+
+        eng, worst = self.eng, 0
+        for i, (bi, r0, rows, cw, wv, n, ctx) in enumerate(eng.tiles):
+            bk = eng.buckets[bi]
+            got = self.tile(i)
+            want = dx.decode_units_plain(
+                cw, wv, n, ctx, eng.lengths, eng.offsets, eng.table,
+                b=bk.b, n_out=bk.N, assume_clean=bk.clean)
+            torch.cuda.synchronize()
+            worst = max(worst, u32_err(got[0], want[0]))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"the old X3 body disagrees with its plain version on "
+                     f"tile {i}")
+        return worst
+
+    def pass_ms(self, idx, iters: int, flush) -> float:
+        """Median ms of the tiles ``idx``' launches back to back: each
+        time queued behind a card sleep (so the events time the card, not
+        the host's launches), between two CUDA events, after one L2
+        flush."""
+        import torch
+
+        for i in idx:
+            self.tile(i)
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            torch.cuda._sleep(TILE_SLEEP_CYCLES * len(idx))
+            flush.amax()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for i in idx:
+                self.tile(i)
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        ts = sorted(a.elapsed_time(b) for a, b in pairs)
+        return ts[len(ts) // 2]
+
+
+def class_pass(eng, idx, warp_tokens=None):
+    """A pass table of the tiles ``idx`` of a raw DecodeEngine alone (a
+    census class), on the engine's device; ``warp_tokens`` (default the
+    shipped cutoff) as ``decode_xla.plan_rows`` takes it."""
+    from dint_tpu_torch.kernels import decode_xla as dx
+
+    tiles = []
+    for i in idx:
+        bi, r0, rows, *_rest = eng.tiles[i]
+        bk = eng.buckets[bi]
+        sl = slice(r0, r0 + rows)
+        tiles.append((bk.cw[sl], bk.w_valid[sl], bk.n[sl], bk.ctx[sl], bk.b,
+                      bk.N, bk.clean))
+    return dx.pass_table(tiles, eng.lengths, eng.offsets, eng.table,
+                         dx.X3_WARP_ROW_TOKENS if warp_tokens is None
+                         else warp_tokens)
+
+
+def time_x3(dec, card_name: str, old_src=None, warp_tokens=()) -> dict:
+    """X3 on a raw StreamDecoder's tiles, census class by class (the
+    class's tiles alone in a pass table) and a whole pass: one launch
+    (``time_ms``: X3_ITERS calls, L2 flushed) and, with ``old_src``, the
+    first body's launches a tile (``OldX3.pass_ms``), and for each cutoff
+    of ``warp_tokens`` the same rows planned with it (its pass's output
+    equal to the shipped plan's), in turns, two rounds; its plain
+    version tile by tile (``tile_times``, X3_PLAIN_ITERS) summed; all
+    against the bytes bound."""
     import torch
 
     from dint_tpu_torch.kernels import decode_xla as dx
@@ -2776,22 +2952,44 @@ def time_x3(dec, card_name: str) -> dict:
         key = f"{bk.W}/{bk.N}/{bk.b}/{'clean' if bk.clean else 'dirty'}"
         groups.setdefault(key, []).append(i)
     groups["pass"] = list(range(len(eng.tiles)))
+    old = OldX3(old_src, eng) if old_src else None
+    old_err = old.check() if old else None
     flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
-    turns = {"x3": [], "plain": []}
-    for _ in range(2):
-        turns["x3"].append(tile_times(eng, dx.decode_units, X3_ITERS, flush))
-        turns["plain"].append(tile_times(eng, dx.decode_units_plain,
-                                         X3_PLAIN_ITERS, flush))
-    del flush
+    plain = [tile_times(eng, dx.decode_units_plain, X3_PLAIN_ITERS, flush)
+             for _ in range(2)]
     out = {}
     for key, idx in groups.items():
-        ms = {k: sum(sum(t[i] for i in idx) for t in v) / len(v)
-              for k, v in turns.items()}
+        pt = eng.pass_table if key == "pass" else class_pass(eng, idx)
+        fns = {"x3": lambda: dx.decode_pass(pt)}
+        if old:
+            fns["old"] = lambda: old.pass_ms(idx, X3_ITERS, flush)
+        alts = {c: class_pass(eng, idx, c) for c in warp_tokens}
+        for c, apt in alts.items():
+            fns[f"warp_{c}"] = lambda apt=apt: dx.decode_pass(apt)
+            if key == "pass" and not torch.equal(dx.decode_pass(apt).buf,
+                                                 dx.decode_pass(pt).buf):
+                fail(f"X3 planned with warp rows of at most {c} tokens "
+                     f"disagrees with the shipped plan")
+        got = {k: [] for k in fns}
+        for r in range(2):
+            for k in (fns if r == 0 else reversed(list(fns))):
+                got[k].append(fns[k]() if k == "old"
+                              else time_ms(fns[k], X3_ITERS, flush))
+        del pt, alts
         nbytes = x3_group_bytes(tb, lengths_flat, idx)
         rows = sum(eng.tiles[i][2] for i in idx)
-        out[key] = {"tiles": len(idx), "rows": rows, "ms": ms["x3"],
-                    "plain_ms": ms["plain"],
+        ms = sum(got["x3"]) / 2
+        out[key] = {"tiles": len(idx), "rows": rows, "ms": ms,
+                    "plain_ms": sum(sum(t[i] for i in idx) for t in plain) / 2,
                     **bound_entry(nbytes, 0.0, card_name)}
+        if old:
+            out[key]["old_ms"] = sum(got["old"]) / 2
+            out[key]["old_launches"] = len(idx)
+        for c in warp_tokens:
+            out[key][f"warp_{c}_ms"] = sum(got[f"warp_{c}"]) / 2
+    if old:
+        out["old_max_abs_err"] = old_err
+    del flush
     return out
 
 
@@ -2940,9 +3138,9 @@ def x4_phase(t: str, eng, plan, card_name: str, device="cuda") -> dict:
 
 
 def require_x3(counts, plain_calls, path: str, want: int) -> None:
-    """``path`` launched X3 exactly ``want`` times (one a tile a pass) and
-    ran its plain version on no card tensor; on the CPU (a rehearsal)
-    no launch."""
+    """``path`` launched X3 exactly ``want`` times (one a pass) and ran its
+    plain version on no card tensor; on the CPU (a rehearsal) no
+    launch."""
     import torch
 
     got = counts[X3]
@@ -2956,15 +3154,19 @@ def require_x3(counts, plain_calls, path: str, want: int) -> None:
         fail(f"the {path} path launched other kernels: {others}")
 
 
-def raw_phases(data, base: str, smi: str, card_name: str, device="cuda"):
+def raw_phases(data, base: str, smi: str, card_name: str, device="cuda",
+               x3_old=None, x3_warp_tokens=()):
     """Phase 15: ``decode_stream(engine="raw")`` for both DINT types,
-    exact over every list, launches counted from zero (X3 once a tile a
-    pass, no torch-op decode on the card); then the bucket census, X3
-    against its plain version on every tile and on the edge tiles, X3
-    timed a tile class and a pass in turns with its plain version against
-    the bytes bound, and torch.profiler traces of passes through X3 and
-    through the torch ops.  Returns ({type: record}, X3's kernels-line
-    entry or None on the CPU)."""
+    exact over every list, launches counted from zero (X3 once a pass, no
+    torch-op decode on the card); then the bucket census, X3 against its
+    plain version on every tile of a pass and on the edge tiles (one a
+    launch, and all in one mixed pass), X3 timed a census class and a pass
+    in turns with the first body's launches a tile (``x3_old``) and with
+    the same rows planned at other warp-row cutoffs (``x3_warp_tokens``)
+    against
+    the bytes bound and the plain version, and torch.profiler traces of
+    passes through X3 and through the torch ops.  Returns ({type:
+    record}, X3's kernels-line entry or None on the CPU)."""
     import torch
 
     from dint_tpu_torch.index import stream as stream_mod
@@ -2973,7 +3175,11 @@ def raw_phases(data, base: str, smi: str, card_name: str, device="cuda"):
     on_card = device != "cpu"
     out = {}
     edge = [(c[0], x3_args(c, device), *c[2:]) for c in x3_edge_tiles()]
-    worst = check_x3(edge) if on_card else 0
+    worst = 0
+    if on_card:
+        worst = max(check_x3(edge), check_x3_pass(*x3_edge_pass(device)))
+        log(f"X3 equals its plain version on {len(edge)} edge tiles, one a "
+            f"launch and as one mixed pass")
     launches = 0
     for t in TYPES:
         stream, dict_file = data[t]
@@ -2991,7 +3197,7 @@ def raw_phases(data, base: str, smi: str, card_name: str, device="cuda"):
                                    "raw", device=device)
         census = dec.engine.census()
         tiles = len(dec.engine.tiles)
-        require_x3(counts, plain_calls, f"raw {t}", tiles * (RAW_RUNS + 2))
+        require_x3(counts, plain_calls, f"raw {t}", RAW_RUNS + 2)
         launches += counts[X3]
 
         def runs(k):
@@ -3006,25 +3212,33 @@ def raw_phases(data, base: str, smi: str, card_name: str, device="cuda"):
             prof_plain = profile_device(
                 runs(RAW_PLAIN_PROFILE_RUNS), RAW_PLAIN_PROFILE_RUNS,
                 os.path.join(CACHE, f"raw_trace_plain.{t}.json"))
+        items = dec.engine.pass_table.items
         out[t] = {
             "type": t, "ints_x_sec": rec["ints_x_sec"],
             "ns_x_int": rec["ns_x_int"],
             "num_integers": rec["num_integers"], "runs": rec["runs"],
             "cold_start_s": rec["cold_start_s"], "check": rec["check"],
-            "census": census, "tiles": tiles, "profile": prof,
-            "profile_torch_ops": prof_plain,
+            "census": census, "tiles": tiles,
+            "rows": dec.engine.pass_table.R,
+            "blocks": {"block_rows": int((items[:, 1] == 0).sum()),
+                       "warp_rows": int((items[:, 1] == 1).sum())},
+            "profile": prof, "profile_torch_ops": prof_plain,
             "launches": {k: v for k, v in counts.items() if v},
             "device": rec["device"], "nvidia_smi": smi,
         }
         if on_card:
-            worst = max(worst, check_x3(tile_cases(dec.engine)))
-            out[t]["x3"] = time_x3(dec, card_name)
+            worst = max(worst, check_x3_pass(tile_labels(dec.engine),
+                                             dec.engine.pass_table))
+            out[t]["x3"] = time_x3(dec, card_name, x3_old, x3_warp_tokens)
             p = out[t]["x3"]["pass"]
+            old = (f", first body {p['old_ms'] * 1e3:.1f} us in "
+                   f"{p['old_launches']} launches" if x3_old else "")
             log(f"X3 pass of {t}: {p['ms'] * 1e3:.1f} us (bound "
-                f"{p['bound_ms'] * 1e3:.1f} us, plain {p['plain_ms']:.2f} ms)")
+                f"{p['bound_ms'] * 1e3:.1f} us, plain {p['plain_ms']:.2f} ms"
+                f"{old})")
         log(f"raw {t}: {int(rec['ints_x_sec']) / 1e9:.3f} G ints/s, "
             f"{census['units_clean']} clean / {census['units_dirty']} dirty "
-            f"units, {tiles} tiles")
+            f"units, {tiles} tiles, {items.shape[0]} blocks a pass")
         del dec
         torch.cuda.empty_cache()
     if not on_card:
@@ -3034,15 +3248,26 @@ def raw_phases(data, base: str, smi: str, card_name: str, device="cuda"):
         "name": X3, "route": "cuda",
         "source": "dint_tpu_torch/kernels/csrc/raw_decode.cu",
         "replaces": "dint_tpu/kernels/decode_xla.py:121 (decode_units, run "
-                    "a tile at a time by kernels/pipeline.py:183)",
+                    "a tile at a time by kernels/pipeline.py:178-190)",
         "launches": launches, "max_abs_err": worst,
         "ms": sum(p["ms"] for p in passes),
         "plain_ms": sum(p["plain_ms"] for p in passes),
         **bound_entry(sum(p["bytes"] for p in passes), 0.0, card_name),
         "library_ms": None, "launches_by_path": {"raw": launches},
-        "timed": "one pass over every tile of both bench streams",
+        "timed": "one pass over every tile of each bench stream, one "
+                 "launch, summed over the two streams",
         "by_stream": {t: out[t]["x3"] for t in TYPES},
     }
+    if x3_old:
+        x3["old_body"] = {
+            "source": x3_old, "ms": sum(p["old_ms"] for p in passes),
+            "launches_a_pass": {t: out[t]["x3"]["pass"]["old_launches"]
+                                for t in TYPES},
+            "max_abs_err": max(out[t]["x3"]["old_max_abs_err"]
+                               for t in TYPES),
+            "timed": "the first body's launches of a pass, one a tile, "
+                     "queued behind a card sleep, in turns with the "
+                     "shipped one"}
     return out, x3
 
 
@@ -4512,7 +4737,19 @@ def main(argv=None) -> int:
                     help="an ef_decode.cu of the chunk design (its count "
                     "and decode entries over a chunk table): timed in turns "
                     "beside the shipped X2 on the ef index")
+    ap.add_argument("--x3-old", metavar="SOURCE",
+                    help="a raw_decode.cu of the first X3 design (its "
+                    "one-tile entry dint_raw_decode): held to the plain "
+                    "version, then its launches a tile of each census "
+                    "class and of a pass timed in turns beside the shipped "
+                    "X3's one launch")
+    ap.add_argument("--x3-warp-tokens", metavar="N[,N...]", default="",
+                    help="X3's census classes and passes also planned with "
+                    "warp rows of at most N tokens in range (0: only rows "
+                    "with none), timed in turns beside the shipped plan")
     args = ap.parse_args(argv)
+    x3_warp_tokens = tuple(int(c) for c in args.x3_warp_tokens.split(",")
+                           if c)
     if args.k3_old_scale and not args.k3_old:
         ap.error("--k3-old-scale needs --k3-old")
 
@@ -4662,7 +4899,8 @@ def main(argv=None) -> int:
     mark(t_start, "phases 8-14")
 
     # 15. the raw chain-scan engine, both DINT types, exact, through X3
-    raw, x3 = raw_phases(data, base, smi, kind)
+    raw, x3 = raw_phases(data, base, smi, kind, x3_old=args.x3_old,
+                         x3_warp_tokens=x3_warp_tokens)
     print(json.dumps({"raw": raw}), flush=True)
 
     mark(t_start, "phase 15")

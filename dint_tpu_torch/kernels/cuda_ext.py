@@ -66,12 +66,10 @@ _SIGNATURES = {
                            ctypes.c_int64, _P],
     },
     "libdintraw.so": {
-        # cw, w_valid, n, ctx, lengths, offsets, table, val, produced,
-        # consumed, rows, W, E, T, n_out, b, assume_clean, stream
-        "dint_raw_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _P],
+        # tokens, rows, items, n_items, lengths, offsets, table, E, T, val,
+        # produced, consumed, stream
+        "dint_raw_pass": [_P, _P, _P, ctypes.c_int64, _P, _P, _P,
+                          ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P],
     },
     "libdintbyte.so": {
         # host class table, classes, group_bits, salt, stream

@@ -1,6 +1,6 @@
-"""Batched DINT decode of the raw chain-scan engine: X3, a hand kernel
-a tile on the card (``csrc/raw_decode.cu``), and its plain version in
-PyTorch ops.
+"""Batched DINT decode of the raw chain-scan engine: X3, one hand kernel
+launch a pass over every tile on the card (``csrc/raw_decode.cu``), and
+its plain version in PyTorch ops.
 
 The reference decode (vroom_env/dint_codecs.hpp:37-107) is a sequential
 pointer walk: read a codeword, copy a dictionary entry or consume an
@@ -30,10 +30,16 @@ Here it runs as three dense phases over a whole batch of encoded units
    reference's pre-zeroed buffer + 16-word memcpy trick
    (dict_posting_list.hpp:296, single_dictionary.hpp:230-238).
 
-``decode_units`` is the dispatcher: on CUDA tensors it launches X3 (one
-warp a row, the chain solved 32 tokens at a time by a warp scan of the
-same boolean matrices, see the source's note) or raises; on CPU tensors
-it runs ``decode_units_plain``, the three phases above as torch ops.
+``decode_units_plain`` is these phases as torch ops on one tile, X3's
+plain version.  ``PassTable`` holds every tile of a pass on one device
+(flat token, w_valid, n and ctx tensors, and on a card the row table of
+``plan_rows``: a row a warp or a block, longest first), checked once;
+``decode_pass`` decodes it: on a card ONE launch of X3 (each row's chain
+cut by a team-wide scan of the boolean matrices, see the source's note)
+into one fresh buffer whose views are the tiles' outputs, or the call
+raises; on the CPU ``decode_pass_plain``, the plain version tile by tile.
+``decode_units`` is the one-tile entry: on a card the same kernel over a
+one-tile row table, on the CPU the plain version.
 
 u32 data travels as int32 bit patterns: the table and the decoded
 values are int32 tensors holding u32 bits, and the exception values are
@@ -45,6 +51,8 @@ reference drops go to one padded column that is sliced off.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
@@ -240,40 +248,270 @@ def decode_units_plain(
 
 
 _X3_LIB = "libdintraw.so"
+# X3's launch shape, as csrc/raw_decode.cu has it: a block of X3_THREADS
+# threads; a row takes the block, each thread composing X3_RUN consecutive
+# tokens, or a warp, each lane X3_WARP_RUN.
+X3_THREADS = 256
+X3_WARP = 32
+X3_RUN = 4
+X3_WARP_RUN = 2
+X3_MAX_W = 1 << 29  # a row's positions stay below its codewords' kind bits
+# Rows with at most this many tokens in range and slots take a warp each,
+# X3_THREADS // X3_WARP rows of one group a block; longer rows a block.  A
+# warp row walks 64 tokens a round, a block row 1,024: on the H100 rows of
+# 257-1,024 tokens ran faster alone on a block, and both bench passes were
+# no slower with 256 than with 512 or 1,024 (chip_smoke.py
+# --x3-warp-tokens).
+X3_WARP_ROW_TOKENS = 256
+X3_WARP_ROW_SLOTS = 2048
+
+# A row of X3's row table (``RowDesc`` in the source, 40 bytes): its first
+# token in the pass's token buffer, its first slot in the value buffer,
+# W, w_valid, n, ctx, n_out and the index of its produced and consumed.
+ROW_DTYPE = np.dtype([("tok", "<i8"), ("out", "<i8"), ("W", "<i4"),
+                      ("wv", "<i4"), ("n", "<i4"), ("ctx", "<i4"),
+                      ("n_out", "<i4"), ("idx", "<i4")])
 
 
-def _x3_check(cw, w_valid, n, ctx, lengths, offsets, table, b: int,
-              n_out: int) -> None:
-    """Raise unless every input is a contiguous int32 tensor on cw's
-    device of the shapes ``decode_units`` takes, b is 8 or 16 and n_out
-    is at least 1."""
-    name = "decode_units"
-    if b not in (8, 16):
-        raise ValueError(f"{name}: b must be 8 or 16, got {b}")
-    if n_out < 1:
-        raise ValueError(f"{name}: n_out must be at least 1, got {n_out}")
-    if cw.dim() != 2 or cw.shape[1] < 1:
-        raise ValueError(f"{name}: cw must be (B, W) with W >= 1, got "
-                         f"{tuple(cw.shape)}")
-    B = cw.shape[0]
-    for what, x in (("w_valid", w_valid), ("n", n), ("ctx", ctx)):
-        if tuple(x.shape) != (B,):
-            raise ValueError(f"{name}: {what} must be ({B},), got "
-                             f"{tuple(x.shape)}")
-    if (lengths.dim() != 2 or tuple(offsets.shape) != tuple(lengths.shape)
-            or lengths.shape[1] <= EXCEPTIONS or lengths.shape[0] < 1):
-        raise ValueError(f"{name}: lengths and offsets must both be (C, E) "
-                         f"with E > {EXCEPTIONS}, got {tuple(lengths.shape)} "
-                         f"and {tuple(offsets.shape)}")
-    if table.dim() != 1 or table.shape[0] < 1:
-        raise ValueError(f"{name}: table must be (T,) with T >= 1, got "
-                         f"{tuple(table.shape)}")
-    for x in (cw, w_valid, n, ctx, lengths, offsets, table):
-        if x.dtype != torch.int32 or x.device != cw.device:
-            raise ValueError(f"{name}: every tensor must be int32 on "
-                             f"{cw.device}, got {x.dtype} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous")
+@dataclass(frozen=True)
+class TileSpec:
+    """A tile of a pass: ``rows`` rows of ``W`` tokens from token ``tok0``
+    of the pass's token buffer, rows ``row0`` .. of its w_valid, n, ctx,
+    produced and consumed, ``N`` slots a row from slot ``out0`` of its
+    value buffer; width ``b``, ``clean`` (the chain scan skipped)."""
+
+    b: int
+    clean: bool
+    W: int
+    N: int
+    rows: int
+    row0: int
+    tok0: int
+    out0: int
+
+
+def row_group(b: int, clean: bool) -> int:
+    """A row's (b, clean) group as the kernel's switch reads it."""
+    return int(b == 8) | int(clean) << 1
+
+
+def row_cost(w_eff, n_out, clean, team):
+    """A row's steps a thread on a team of ``team`` threads (X3_WARP or
+    X3_THREADS): its chunks of team * run tokens, each run walked two or
+    three times (a dirty chunk composes, walks and lists; a clean one
+    walks and lists), and its slots, n_out / team a thread."""
+    run = np.where(team == X3_WARP, X3_WARP_RUN, X3_RUN)
+    chunks = -(-np.maximum(w_eff, 1) // (team * run))
+    return (chunks * np.where(clean, 2, 3) * run
+            + -(-np.asarray(n_out, np.int64) // team))
+
+
+def plan_rows(specs, w_valid, n, ctx, warp_tokens=X3_WARP_ROW_TOKENS):
+    """X3's row table for the tiles ``specs`` (w_valid, n, ctx: host arrays
+    of every row in tile order): (rows, ROW_DTYPE, in launch order; items,
+    (I, 4) int32 rows of (group, warp_rows, row0, rows), one a block).  A
+    row with at most ``warp_tokens`` tokens in range and
+    ``X3_WARP_ROW_SLOTS`` slots takes a warp, X3_THREADS // X3_WARP rows of one group a block; any other a
+    block.  Items go by ``row_cost``, most first (the warp rows of a group
+    sorted so before they are cut into blocks), so the longest rows start
+    first and the short ones fill the tail."""
+    R = sum(s.rows for s in specs)
+    rows = np.zeros(R, ROW_DTYPE)
+    group = np.zeros(R, np.int64)
+    for s in specs:
+        sl = slice(s.row0, s.row0 + s.rows)
+        i = np.arange(s.rows, dtype=np.int64)
+        rows["tok"][sl] = s.tok0 + i * s.W
+        rows["out"][sl] = s.out0 + i * s.N
+        rows["W"][sl] = s.W
+        rows["n_out"][sl] = s.N
+        group[sl] = row_group(s.b, s.clean)
+    rows["wv"], rows["n"], rows["ctx"] = w_valid, n, ctx
+    rows["idx"] = np.arange(R)
+    w_eff = np.clip(rows["wv"], 0, rows["W"]).astype(np.int64)
+    warp = (w_eff <= warp_tokens) & (rows["n_out"] <= X3_WARP_ROW_SLOTS)
+    cost = row_cost(w_eff, rows["n_out"], (group & 2) != 0,
+                    np.where(warp, X3_WARP, X3_THREADS))
+    # (cost, group, warp_rows, members)
+    work = [(int(cost[r]), int(group[r]), 0, np.asarray([r]))
+            for r in np.flatnonzero(~warp)]
+    per = X3_THREADS // X3_WARP
+    for g in range(4):
+        ids = np.flatnonzero(warp & (group == g))
+        ids = ids[np.argsort(-cost[ids], kind="stable")]
+        work += [(int(cost[ids[k]]), g, 1, ids[k : k + per])
+                 for k in range(0, ids.shape[0], per)]
+    work.sort(key=lambda w: (-w[0], w[1], w[2], int(w[3][0])))
+    items = np.zeros((len(work), 4), np.int32)
+    pos = 0
+    for i, (_, g, wr, members) in enumerate(work):
+        items[i] = (g, wr, pos, members.shape[0])
+        pos += members.shape[0]
+    order = (np.concatenate([w[3] for w in work]) if work
+             else np.zeros(0, np.int64))
+    return rows[order], items
+
+
+def _check_ctx(ctx: np.ndarray, C: int) -> None:
+    if ctx.size and (int(ctx.min()) < 0 or int(ctx.max()) >= C):
+        raise ValueError(f"X3: every ctx must lie in [0, {C}), got "
+                         f"[{int(ctx.min())}, {int(ctx.max())}]")
+
+
+class PassTable:
+    """What X3 decodes in one launch: the tiles ``specs`` (TileSpec) of a
+    pass on one device, their rows' tokens, w_valid, n and ctx in flat
+    int32 tensors (the tiles' rows in turn), and the dictionary
+    (``lengths`` (C, E), ``offsets`` (C, E), ``table`` (T,)).  Every check
+    runs here, once; on a card the row table and items of ``plan_rows``
+    are uploaded here too, so that ``decode_pass`` is one allocation and
+    one launch.  ``host``: (w_valid, n, ctx) as numpy arrays, where the
+    caller has them (else they are read back); ``warp_tokens``: as
+    ``plan_rows`` takes it."""
+
+    def __init__(self, tokens, w_valid, n, ctx, specs, lengths, offsets,
+                 table, host=None, warp_tokens=X3_WARP_ROW_TOKENS):
+        name = "X3"
+        self.device = tokens.device
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {self.device}")
+        self.specs = list(specs)
+        self.R = sum(s.rows for s in self.specs)
+        self.slots = sum(s.rows * s.N for s in self.specs)
+        for s in self.specs:
+            if s.b not in (8, 16):
+                raise ValueError(f"{name}: b must be 8 or 16, got {s.b}")
+            if s.N < 1:
+                raise ValueError(f"{name}: n_out must be at least 1, got "
+                                 f"{s.N}")
+            if not 1 <= s.W < X3_MAX_W or s.rows < 0:
+                raise ValueError(f"{name}: a tile must be (B, W) with 1 <= "
+                                 f"W < {X3_MAX_W}, got ({s.rows}, {s.W})")
+            if s.tok0 + s.rows * s.W > tokens.numel():
+                raise ValueError(f"{name}: a tile's tokens run past the "
+                                 f"token buffer")
+        for what, x in (("w_valid", w_valid), ("n", n), ("ctx", ctx)):
+            if tuple(x.shape) != (self.R,):
+                raise ValueError(f"{name}: {what} must be ({self.R},), got "
+                                 f"{tuple(x.shape)}")
+        if (lengths.dim() != 2 or tuple(offsets.shape) != tuple(lengths.shape)
+                or lengths.shape[1] <= EXCEPTIONS or lengths.shape[0] < 1):
+            raise ValueError(f"{name}: lengths and offsets must both be "
+                             f"(C, E) with E > {EXCEPTIONS}, got "
+                             f"{tuple(lengths.shape)} and "
+                             f"{tuple(offsets.shape)}")
+        if table.dim() != 1 or not 1 <= table.shape[0] < 1 << 31:
+            raise ValueError(f"{name}: table must be (T,) with 1 <= T < "
+                             f"2^31, got {tuple(table.shape)}")
+        for x in (tokens, w_valid, n, ctx, lengths, offsets, table):
+            if x.dtype != torch.int32 or x.device != self.device:
+                raise ValueError(f"{name}: every tensor must be int32 on "
+                                 f"{self.device}, got {x.dtype} on "
+                                 f"{x.device}")
+            if not x.is_contiguous():
+                raise ValueError(f"{name}: every tensor must be contiguous")
+        if host is None:
+            host = torch.stack([w_valid, n, ctx]).cpu().numpy()
+        _check_ctx(np.asarray(host[2]), lengths.shape[0])
+        self.tokens, self.w_valid, self.n, self.ctx = tokens, w_valid, n, ctx
+        self.lengths, self.offsets, self.table = lengths, offsets, table
+        self.rows, self.items = plan_rows(self.specs, *host,
+                                          warp_tokens=warp_tokens)
+        if self.device.type == "cuda":
+            up = lambda a: torch.from_numpy(  # noqa: E731
+                np.ascontiguousarray(a).view(np.int32)).to(self.device)
+            self._rows_t, self._items_t = up(self.rows), up(self.items)
+            self._args = (tokens.data_ptr(), self._rows_t.data_ptr(),
+                          self._items_t.data_ptr(), self.items.shape[0],
+                          lengths.data_ptr(), offsets.data_ptr(),
+                          table.data_ptr(), lengths.shape[1], table.shape[0])
+
+    def tile(self, i: int):
+        """Tile i's inputs: (cw (rows, W), w_valid, n, ctx), views."""
+        s = self.specs[i]
+        rs = slice(s.row0, s.row0 + s.rows)
+        cw = self.tokens[s.tok0 : s.tok0 + s.rows * s.W].view(s.rows, s.W)
+        return cw, self.w_valid[rs], self.n[rs], self.ctx[rs]
+
+
+def pass_table(tiles, lengths, offsets, table,
+               warp_tokens=X3_WARP_ROW_TOKENS) -> PassTable:
+    """A PassTable on the dictionary's device from host tiles [(cw (rows,
+    W), w_valid, n, ctx, b, n_out, clean)] (arrays of int32 values):
+    their tokens, w_valid, n and ctx uploaded once, one tensor each;
+    ``warp_tokens`` as ``plan_rows`` takes it."""
+    specs, row0, tok0, out0 = [], 0, 0, 0
+    for cw, _, _, _, b, N, clean in tiles:
+        rows, W = cw.shape
+        specs.append(TileSpec(int(b), bool(clean), int(W), int(N), rows,
+                              row0, tok0, out0))
+        row0, tok0, out0 = row0 + rows, tok0 + rows * W, out0 + rows * N
+
+    def flat(k):
+        parts = [np.asarray(t[k]).reshape(-1) for t in tiles]
+        return np.concatenate(parts or [np.zeros(0)]).astype(np.int32)
+
+    host = [flat(k) for k in (1, 2, 3)]
+    dev = lengths.device
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return PassTable(up(flat(0)), *(up(a) for a in host), specs, lengths,
+                     offsets, table, host=host, warp_tokens=warp_tokens)
+
+
+class PassOutputs(Sequence):
+    """A pass's outputs tile by tile, (out (rows, N) int32 u32 bits,
+    produced (rows,), consumed (rows,)), views of the pass's one buffer
+    (every value, then every produced, then every consumed) made when a
+    tile is asked for."""
+
+    def __init__(self, pt: PassTable, buf: torch.Tensor):
+        self.pt, self.buf = pt, buf
+
+    def __len__(self) -> int:
+        return len(self.pt.specs)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[k] for k in range(*i.indices(len(self)))]
+        s = self.pt.specs[i]
+        p0 = self.pt.slots + s.row0
+        c0 = p0 + self.pt.R
+        return (self.buf[s.out0 : s.out0 + s.rows * s.N].view(s.rows, s.N),
+                self.buf[p0 : p0 + s.rows], self.buf[c0 : c0 + s.rows])
+
+
+def decode_pass_plain(pt: PassTable):
+    """X3's plain version over a pass: ``decode_units_plain`` tile by
+    tile, [(out, produced, consumed)]."""
+    return [decode_units_plain(*pt.tile(i), pt.lengths, pt.offsets,
+                               pt.table, b=s.b, n_out=s.N,
+                               assume_clean=s.clean)
+            for i, s in enumerate(pt.specs)]
+
+
+def decode_pass(pt: PassTable):
+    """X3: every tile of ``pt`` decoded, [(out (rows, N) int32 u32 values,
+    (rows,) produced, (rows,) consumed)] tile by tile, what
+    ``decode_pass_plain`` returns.  On a card ONE launch of
+    ``dint_raw_pass`` into one fresh buffer (or the call raises), the
+    tiles' outputs views of it; on the CPU the plain version."""
+    if pt.device.type == "cpu":
+        return decode_pass_plain(pt)
+    buf = torch.empty(pt.slots + 2 * pt.R, dtype=torch.int32,
+                      device=pt.device)
+    if pt.items.shape[0]:
+        from . import cuda_ext
+
+        p = buf.data_ptr()
+        rc = cuda_ext.lib(_X3_LIB).dint_raw_pass(
+            *pt._args, p, p + 4 * pt.slots, p + 4 * (pt.slots + pt.R),
+            torch.cuda.current_stream(pt.device).cuda_stream)
+        cuda_ext.check(_X3_LIB, "dint_raw_pass", rc)
+        decode_pass.launches += 1
+    return PassOutputs(pt, buf)
+
+
+decode_pass.launches = 0
 
 
 def decode_units(
@@ -289,44 +527,25 @@ def decode_units(
     n_out: int = 256,
     assume_clean: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """X3: decode a bucket of units, returning what
-    ``decode_units_plain`` returns ((B, n_out) int32 u32 values, (B,)
-    produced, (B,) consumed).  On a CUDA device ONE launch of
-    ``dint_raw_decode`` into fresh outputs (or the call raises); on the
-    CPU the plain version."""
-    _x3_check(cw, w_valid, n, ctx, lengths, offsets, table, b, n_out)
-    dev = cw.device
-    if dev.type == "cpu":
-        return decode_units_plain(cw, w_valid, n, ctx, lengths, offsets,
-                                  table, b=b, n_out=n_out,
-                                  assume_clean=assume_clean)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_units: unsupported device {dev}")
+    """X3 on one tile, returning what ``decode_units_plain`` returns
+    ((B, n_out) int32 u32 values, (B,) produced, (B,) consumed): a
+    one-tile pass table (w_valid, n and ctx read back to plan it, every
+    check of ``PassTable``, a ctx outside [0, C) refused) through
+    ``decode_pass``: on a CUDA device ONE launch of the pass's kernel, or
+    the call raises; on the CPU the plain version."""
+    if cw.dim() != 2 or cw.shape[1] < 1:
+        raise ValueError(f"decode_units: cw must be (B, W) with W >= 1, got "
+                         f"{tuple(cw.shape)}")
+    if not cw.is_contiguous():
+        raise ValueError("decode_units: every tensor must be contiguous")
     B, W = cw.shape
-    # the three outputs in one allocation: val, then produced, consumed
-    buf = torch.empty(B * (n_out + 2), dtype=torch.int32, device=dev)
-    val = buf[: B * n_out].view(B, n_out)
-    produced = buf[B * n_out : B * (n_out + 1)]
-    consumed = buf[B * (n_out + 1) :]
-    if B == 0:
-        return val, produced, consumed
-    from . import cuda_ext
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = cuda_ext.lib(_X3_LIB).dint_raw_decode(
-        cw.data_ptr(), w_valid.data_ptr(), n.data_ptr(), ctx.data_ptr(),
-        lengths.data_ptr(), offsets.data_ptr(), table.data_ptr(),
-        val.data_ptr(), produced.data_ptr(), consumed.data_ptr(), B, W,
-        lengths.shape[1], table.shape[0], n_out, b, int(assume_clean),
-        stream)
-    cuda_ext.check(_X3_LIB, "dint_raw_decode", rc)
-    decode_units.launches += 1
-    return val, produced, consumed
+    spec = TileSpec(b, bool(assume_clean), W, n_out, B, 0, 0, 0)
+    pt = PassTable(cw.reshape(-1), w_valid, n, ctx, [spec], lengths,
+                   offsets, table)
+    return decode_pass(pt)[0]
 
 
-decode_units.launches = 0
-
-KERNELS = {"X3_raw_decode": decode_units}
+KERNELS = {"X3_raw_decode": decode_pass}
 
 
 def reset_launch_counts() -> None:

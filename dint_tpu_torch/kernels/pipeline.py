@@ -4,8 +4,10 @@ decode.
 Buckets encoded units (list chunks or 256-int blocks) into a small set
 of fixed shape classes, splits them into clean (no possible exception
 marker anywhere in the token range — the chain scan is skipped) and
-dirty groups, and runs the structure-discovering decoder
-(``decode_xla.py``, PyTorch ops) per tile of at most ``B_TILE_*`` units.
+dirty groups, cuts them into tiles of at most ``B_TILE_*`` units, and
+runs the structure-discovering decoder (``decode_xla.py``) over every
+tile of a pass at once: on the card one X3 launch, on the CPU its plain
+version in PyTorch ops tile by tile.
 This engine discovers codeword boundaries on the device; the localized
 engine (``decode_local.py``) is the fast path.  Load-time planning here
 is the analogue of the reference's mmap + header walk
@@ -150,7 +152,10 @@ B_TILE_DIRTY = 256
 class DecodeEngine:
     """Holds device-resident dictionary + bucket tiles on ``device``;
     runs the full decode.  Tiles are cut at ``B_TILE_*`` units and not
-    padded: no shape has to repeat."""
+    padded: no shape has to repeat.  Every tile's tokens, w_valid, n and
+    ctx are uploaded once into one ``decode_xla.PassTable`` (the tiles'
+    tensors are views of it), checked once, and a pass is one
+    ``decode_xla.decode_pass``: on the card one X3 launch."""
 
     def __init__(self, view: DecodeView, buckets: List[Bucket],
                  device="cuda"):
@@ -166,16 +171,21 @@ class DecodeEngine:
         self.offsets = up(view.offsets, np.uint32)
         self.table = up(view.table, np.uint32)
         self.buckets = buckets
-        self.tiles = []  # (bucket_idx, row0, rows, cw, wv, n, ctx)
+        keys, tiles = [], []
         for bi, bk in enumerate(buckets):
             tile = B_TILE_CLEAN if bk.clean else B_TILE_DIRTY
             B = bk.cw.shape[0]
             for r0 in range(0, B, tile):
                 rows = min(tile, B - r0)
                 sl = slice(r0, r0 + rows)
-                self.tiles.append((bi, r0, rows, up(bk.cw[sl]),
-                                   up(bk.w_valid[sl]), up(bk.n[sl]),
-                                   up(bk.ctx[sl])))
+                keys.append((bi, r0, rows))
+                tiles.append((bk.cw[sl], bk.w_valid[sl], bk.n[sl],
+                              bk.ctx[sl], bk.b, bk.N, bk.clean))
+        self.pass_table = decode_xla.pass_table(tiles, self.lengths,
+                                                self.offsets, self.table)
+        # (bucket_idx, row0, rows, cw, wv, n, ctx), views of the pass table
+        self.tiles = [(*k, *self.pass_table.tile(i))
+                      for i, k in enumerate(keys)]
 
     def census(self) -> Dict[str, object]:
         """Units clean and dirty, and tiles per (W, N, b, clean)."""
@@ -194,15 +204,8 @@ class DecodeEngine:
 
     def decode_all(self):
         """One decode pass over every tile; returns device outputs
-        [(out (rows, N) int32 u32 bits, produced, consumed)]."""
-        outs = []
-        for bi, r0, rows, cw, wv, n, ctx in self.tiles:
-            bk = self.buckets[bi]
-            outs.append(decode_xla.decode_units(
-                cw, wv, n, ctx, self.lengths, self.offsets, self.table,
-                b=bk.b, n_out=bk.N, assume_clean=bk.clean,
-            ))
-        return outs
+        [(out (rows, N) int32 u32 bits, produced, consumed)] a tile."""
+        return decode_xla.decode_pass(self.pass_table)
 
     def block_and_check(self, outs) -> int:
         total = 0

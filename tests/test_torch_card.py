@@ -14,9 +14,10 @@ launch against its plain version and the portable branch,
 with the launches of its kernels counted, K3 (the zero class) alone and
 inside the fused class launch at every n_out against their plain
 versions with a guard row after the output, X2 (the EF decode)
-against its plain version and the values written, X3 (the raw decode a
-tile) against its plain version on ``chip_smoke``'s edge tiles and on a
-small collection's raw engine (every list exact, one launch a tile),
+against its plain version and the values written, X3 (the raw decode of
+a pass) against its plain version on ``chip_smoke``'s edge tiles, one at
+a time and as one mixed pass, and on a small collection's raw engine
+(every list exact, one launch a pass),
 and X4 (the byte-class wire unpack) against its plain version on edge
 classes and through the vbyte wire engine (every value exact, the chain
 checksum the host's).
@@ -26,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (make_data, x2_edge_arena, x3_args, x3_edge_tiles,
-                        x4_edge_classes)
+from chip_smoke import (make_data, x2_edge_arena, x3_args, x3_edge_pass,
+                        x3_edge_tiles, x4_edge_classes)
 from dint_tpu_torch.codecs import ef, ef_device
 from dint_tpu_torch.config import BLOCK_SIZE
 from dint_tpu_torch.kernels import decode_local as dl
@@ -252,27 +253,38 @@ def test_x2_equals_plain_and_the_values(card):
 
 @pytest.mark.cuda
 def test_x3_equals_plain_on_edge_tiles(card):
-    """X3 (one launch a call) on every edge tile (b = 16 and 8, dirty and
-    clean, W no multiple of 32, w_valid 0 and 1, window-edge exceptions,
-    runs, wrapping table offsets): val, produced and consumed equal to
-    ``decode_units_plain``."""
+    """X3 on every edge tile (b = 16 and 8, dirty and clean, W no multiple
+    of 32, w_valid 0 and 1, exceptions across run, warp and chunk edges,
+    runs, wrapping table offsets), one launch a tile through
+    ``decode_units`` and all of them as one mixed pass (rows a warp and
+    rows a block take, both widths and kinds in one row table) through
+    ``decode_pass``, one launch: val, produced and consumed equal to the
+    plain version."""
     for label, args, b, n_out, clean in x3_edge_tiles():
         ts = x3_args((label, args), card)
-        before = dx.decode_units.launches
+        before = dx.decode_pass.launches
         got = dx.decode_units(*ts, b=b, n_out=n_out, assume_clean=clean)
-        assert dx.decode_units.launches == before + 1
+        assert dx.decode_pass.launches == before + 1
         torch.cuda.synchronize()
         want = dx.decode_units_plain(*ts, b=b, n_out=n_out,
                                      assume_clean=clean)
         for g, w in zip(got, want):
             assert torch.equal(g, w), label
+    labels, pt = x3_edge_pass(card)
+    before = dx.decode_pass.launches
+    got = dx.decode_pass(pt)
+    assert dx.decode_pass.launches == before + 1
+    torch.cuda.synchronize()
+    for label, g, w in zip(labels, got, dx.decode_pass_plain(pt)):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b), label
 
 
 @pytest.mark.cuda
 def test_raw_engine_runs_on_x3(card, tmp_path):
     """A small collection's two DINT streams through the raw engine on the
-    card: every list equal to the collection, X3 once a tile a pass, each
-    tile equal to the plain version."""
+    card: every list equal to the collection, X3 once a pass (one launch
+    over every tile), each tile of the pass equal to the plain version."""
     from dint_tpu_torch.index import stream as stream_mod
     from dint_tpu_torch.tools import common, decode
 
@@ -283,18 +295,17 @@ def test_raw_engine_runs_on_x3(card, tmp_path):
         view = decode.load_dictionary(t, dict_file).decode_view()
         dec = decode.StreamDecoder(arena, meta, view, t.startswith("multi"),
                                    "raw", device=card)
-        before = dx.decode_units.launches
+        before = dx.decode_pass.launches
         for got, want in zip(dec.gather_lists(), expect):
             np.testing.assert_array_equal(got, want)
-        assert dx.decode_units.launches == before + len(dec.engine.tiles)
-        eng = dec.engine
-        for bi, r0, rows, cw, wv, n, ctx in eng.tiles:
-            bk = eng.buckets[bi]
-            args = (cw, wv, n, ctx, eng.lengths, eng.offsets, eng.table)
-            kw = dict(b=bk.b, n_out=bk.N, assume_clean=bk.clean)
-            for g, w in zip(dx.decode_units(*args, **kw),
-                            dx.decode_units_plain(*args, **kw)):
-                assert torch.equal(g, w), (t, bi, r0)
+        assert dx.decode_pass.launches == before + 1
+        assert len(dec.engine.tiles) > 1
+        got = dec.decode_all()
+        assert dx.decode_pass.launches == before + 2
+        want = dx.decode_pass_plain(dec.engine.pass_table)
+        for i, (g, w) in enumerate(zip(got, want)):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b), (t, i)
 
 
 @pytest.mark.cuda

@@ -310,6 +310,49 @@ def test_decode_units_on_stream_buckets(streams, type_name):
 
 
 @pytest.mark.parametrize("type_name", TYPES)
+def test_decode_pass_matches_reference_tile_by_tile(streams, type_name):
+    """The raw engine's pass table over every tile of the stream (b = 16
+    and 8, clean and dirty in multi_packed): ``decode_pass`` on the CPU
+    equal, tile by tile, to ``decode_units_plain`` and to the reference's
+    ``decode_units`` on the reference engine's tile (its rows past the
+    port's unpadded tile are padding); the engine's tiles are views of
+    the pass table, and one pass decodes every unit once."""
+    arena, _, view, _, lay = _layout(*streams[0][type_name], type_name)
+    buckets = []
+    for _, _, tb in _bucket_pairs(arena, lay):
+        buckets += tb
+    jeng = j_pipe.DecodeEngine(view, buckets)
+    teng = t_pipe.DecodeEngine(view, buckets, device="cpu")
+    pt = teng.pass_table
+    outs = t_dx.decode_pass(pt)
+    assert len(outs) == len(teng.tiles) == len(jeng.tiles) == len(pt.specs)
+    assert pt.R == sum(bk.indices.shape[0] for bk in buckets)
+    kinds = set()
+    for jt, tt, got, spec in zip(jeng.tiles, teng.tiles, outs, pt.specs):
+        bi, r0, rows, cw, wv, n, ctx = tt
+        bk = buckets[bi]
+        assert jt[:3] == (bi, r0, rows)
+        assert (spec.b, spec.clean, spec.W, spec.N, spec.rows) == (
+            bk.b, bk.clean, bk.W, bk.N, rows)
+        np.testing.assert_array_equal(cw.numpy(), bk.cw[r0 : r0 + rows])
+        assert cw.untyped_storage().data_ptr() == (
+            pt.tokens.untyped_storage().data_ptr())
+        kw = dict(b=bk.b, n_out=bk.N, assume_clean=bk.clean)
+        plain = t_dx.decode_units_plain(cw, wv, n, ctx, teng.lengths,
+                                        teng.offsets, teng.table, **kw)
+        want = j_dx.decode_units(*jt[3:], jeng.lengths, jeng.offsets,
+                                 jeng.table, **kw)
+        for g, p, w in zip(got, plain, want):
+            assert torch.equal(g, p)
+            np.testing.assert_array_equal(u32(g), np.asarray(w)[:rows]
+                                          .view(u32(g).dtype))
+        kinds.add((bk.b, bk.clean))
+    assert (16, True) in kinds
+    if type_name.startswith("multi"):
+        assert (8, False) in kinds
+
+
+@pytest.mark.parametrize("type_name", TYPES)
 def test_raw_stream_decoder_matches_reference_unit_for_unit(streams,
                                                             type_name):
     arena, meta, view, multi, _ = _layout(*streams[0][type_name], type_name)
