@@ -1,0 +1,12 @@
+"""``dictionary_s``: seconds of the dictionary's entries chosen and packed
+in set-up, the program's span ``build.dictionary``, self time. None
+where the span never ran, or where the program keeps no span table."""
+
+
+def read(r):
+    try:
+        from dint_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    s = trace.snapshot().get("build.dictionary")
+    return s["self_s"] if s else None

@@ -19,6 +19,7 @@ import numpy as np
 
 from ..config import MAX_ENTRY_SIZE, NUM_ENTRIES, NUM_SELECTORS, RESERVED
 from ..stats.block_stats import BlockStats, SelectorStats, create_or_load
+from ..utils import trace
 from .dictionary import (
     MultiPackedDictionary,
     PackedDictionary,
@@ -86,9 +87,11 @@ def build_or_load_dict(
         collection_path, compute_gaps, multi=(kind == "multi"),
         cache_dir=cache_dir, device=device,
     )
-    d = build_dictionary(stats, kind, policy)
+    with trace.span("build.dictionary"):
+        d = build_dictionary(stats, kind, policy)
     try:
-        d.store(cache)
+        with trace.span("build.cache"):
+            d.store(cache)
     except OSError:
         pass
     return d

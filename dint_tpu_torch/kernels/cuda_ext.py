@@ -13,7 +13,7 @@ import ctypes
 import os
 import shutil
 
-from ..utils import nativebuild
+from ..utils import nativebuild, trace
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = (
@@ -101,17 +101,20 @@ def nvcc() -> str:
 
 def build(so_name: str) -> str:
     """Compile ``so_name`` from its source if stale; return its path.
-    Raises with the compiler's message if the build fails."""
+    Raises with the compiler's message if the build fails.  The check and
+    any compile are the span ``lib.build``."""
     src = os.path.join(CSRC, _SOURCES[so_name])
     out = os.path.join(nativebuild.build_dir(), so_name)
-    if nativebuild.fresh(out, [src]):
-        return out
-    with nativebuild.locked(out + ".lock"):
+    with trace.span("lib.build"):
         if nativebuild.fresh(out, [src]):
             return out
-        if not nativebuild.compile_atomic([nvcc(), *NVCC_FLAGS, src], [src], out):
-            raise RuntimeError(f"nvcc failed to build {out} from {src}")
-    return out
+        with nativebuild.locked(out + ".lock"):
+            if nativebuild.fresh(out, [src]):
+                return out
+            if not nativebuild.compile_atomic([nvcc(), *NVCC_FLAGS, src],
+                                              [src], out):
+                raise RuntimeError(f"nvcc failed to build {out} from {src}")
+        return out
 
 
 def _bind(path: str, signatures) -> ctypes.CDLL:

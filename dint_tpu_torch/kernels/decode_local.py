@@ -54,6 +54,7 @@ import torch
 from ..backend import resolve_device
 from ..config import EXCEPTIONS, MAX_ENTRY_SIZE
 from ..dictionary.dictionary import DecodeView
+from ..utils import trace
 from . import cuda_ext
 
 W_TOKENS = int(os.environ.get("DINT_TPU_W_TOKENS", "128"))  # planner chop
@@ -138,66 +139,68 @@ def plan_stream_image(
     """Streaming image build: units are planned in shards of about
     ``shard_ints`` output ints (native plan2 per shard), DS2I_THREADS
     shards in flight, and the shard outputs concatenate into the final
-    image.  Raises when the native planner is unavailable."""
-    from . import planner_native
+    image.  Raises when the native planner is unavailable.  Timed as the
+    span ``load.plan``."""
+    with trace.span("load.plan"):
+        from . import planner_native
 
-    if planner_native.get_lib() is None:
-        raise RuntimeError(
-            "native planner unavailable (g++ and native/dint_planner.cpp "
-            "are required)"
-        )
-    if threads is None:
-        threads = max(1, int(os.environ.get("DS2I_THREADS", "1")))
-    starts = np.ascontiguousarray(starts, np.int64)
-    byte_lens = np.ascontiguousarray(byte_lens, np.int64)
-    ns = np.ascontiguousarray(ns, np.int32)
-    ctxs = np.ascontiguousarray(ctxs, np.int32)
-    b_bits = np.ascontiguousarray(b_bits, np.int32)
-    U = starts.shape[0]
-    cuts = [0]
-    acc = 0
-    for u in range(U):
-        acc += int(ns[u])
-        if acc >= shard_ints:
-            cuts.append(u + 1)
-            acc = 0
-    if cuts[-1] != U:
-        cuts.append(U)
-    shards = [(cuts[i], cuts[i + 1]) for i in range(len(cuts) - 1)]
+        if planner_native.get_lib() is None:
+            raise RuntimeError(
+                "native planner unavailable (g++ and "
+                "native/dint_planner.cpp are required)"
+            )
+        if threads is None:
+            threads = max(1, int(os.environ.get("DS2I_THREADS", "1")))
+        starts = np.ascontiguousarray(starts, np.int64)
+        byte_lens = np.ascontiguousarray(byte_lens, np.int64)
+        ns = np.ascontiguousarray(ns, np.int32)
+        ctxs = np.ascontiguousarray(ctxs, np.int32)
+        b_bits = np.ascontiguousarray(b_bits, np.int32)
+        U = starts.shape[0]
+        cuts = [0]
+        acc = 0
+        for u in range(U):
+            acc += int(ns[u])
+            if acc >= shard_ints:
+                cuts.append(u + 1)
+                acc = 0
+        if cuts[-1] != U:
+            cuts.append(U)
+        shards = [(cuts[i], cuts[i + 1]) for i in range(len(cuts) - 1)]
 
-    def run_shard(a_b):
-        a, b = a_b
-        return planner_native.plan_shard_image(
-            arena, starts[a:b], byte_lens[a:b], ns[a:b], ctxs[a:b],
-            b_bits[a:b], a, view, W_TOKENS, N_OUT, TABLE_CLS,
-        )
+        def run_shard(a_b):
+            a, b = a_b
+            return planner_native.plan_shard_image(
+                arena, starts[a:b], byte_lens[a:b], ns[a:b], ctxs[a:b],
+                b_bits[a:b], a, view, W_TOKENS, N_OUT, TABLE_CLS,
+            )
 
-    if threads > 1 and len(shards) > 1:
-        from concurrent.futures import ThreadPoolExecutor
+        if threads > 1 and len(shards) > 1:
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=threads) as ex:
-            parts = list(ex.map(run_shard, shards))
-    else:
-        parts = [run_shard(s) for s in shards]
-    # concatenate; seg_row offsets by per-class row bases
-    b0 = b16 = b32 = 0
-    seg_rows = []
-    for p in parts:
-        sr = p["seg_row"].copy()
-        sr[p["seg_cls"] == 0] += b0
-        sr[p["seg_cls"] == 16] += b16
-        sr[p["seg_cls"] == 32] += b32
-        seg_rows.append(sr)
-        b0 += p["n0"].shape[0]
-        b16 += p["n16"].shape[0]
-        b32 += p["n32"].shape[0]
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                parts = list(ex.map(run_shard, shards))
+        else:
+            parts = [run_shard(s) for s in shards]
+        # concatenate; seg_row offsets by per-class row bases
+        b0 = b16 = b32 = 0
+        seg_rows = []
+        for p in parts:
+            sr = p["seg_row"].copy()
+            sr[p["seg_cls"] == 0] += b0
+            sr[p["seg_cls"] == 16] += b16
+            sr[p["seg_cls"] == 32] += b32
+            seg_rows.append(sr)
+            b0 += p["n0"].shape[0]
+            b16 += p["n16"].shape[0]
+            b32 += p["n32"].shape[0]
 
-    def cat(key):
-        return np.concatenate([p[key] for p in parts])
+        def cat(key):
+            return np.concatenate([p[key] for p in parts])
 
-    fields = {k: cat(k) for k in _FIELDS if k != "seg_row"}
-    fields["seg_row"] = np.concatenate(seg_rows)
-    return DecodeImage(**fields)
+        fields = {k: cat(k) for k in _FIELDS if k != "seg_row"}
+        fields["seg_row"] = np.concatenate(seg_rows)
+        return DecodeImage(**fields)
 
 
 def save_image(img: DecodeImage, path: str) -> None:
@@ -567,61 +570,72 @@ def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
     i32).  Raw (``exact`` False) is the class kernels' contract: K2 and
     K3 leave ``+ salt`` on valid lanes; ``exact`` True leaves it out.  On
     a CUDA device this is ONE launch of ``dint_decode_classes`` (or the
-    call raises); on the CPU, ``decode_classes_plain``."""
-    name = "decode_classes"
-    dev = salt.device
-    if n_out not in _N_OUT_OK:
-        raise ValueError(f"{name}: n_out {n_out} not in {_N_OUT_OK}")
-    if salt.dtype != torch.int64 or salt.numel() != 1:
-        raise ValueError(f"{name}: salt must be a 1-element int64 tensor")
-    # the classes that have rows, in engine order: (body, tensors)
-    classes = []
-    if n0 is not None and n0.shape[0]:
-        classes.append(("K3_zero", (n0,)))
-    for body, words, cls in (("K2_gather16", TABLE_CLS // 2, cls16),
-                             ("K1_gather32", TABLE_CLS, cls32)):
-        if cls is None or cls[2].shape[0] == 0:
-            continue
-        _check_gather(name, words, *cls)
-        if cls[0].shape[1] != n_out:
-            raise ValueError(f"{name}: vidx has {cls[0].shape[1]} lanes a "
-                             f"row, n_out is {n_out}")
-        classes.append((body, tuple(cls)))
-    rows = {"K3_zero": 0, "K2_gather16": 0, "K1_gather32": 0}
-    for body, tensors in classes:
-        n = tensors[-1]
-        if n.dtype != torch.int32 or n.dim() != 1 or n.device != dev:
-            raise ValueError(f"{name}: n must be (rows,) int32 on {dev}, got "
-                             f"{tuple(n.shape)} {n.dtype} on {n.device}")
-        rows[body] = n.shape[0]
-    total = sum(rows.values())
-    if out is None:
-        out = torch.empty((total, n_out), dtype=torch.int32, device=dev)
-    elif (out.dtype != torch.int32 or tuple(out.shape) != (total, n_out)
-          or out.device != dev):
-        raise ValueError(f"{name}: out must be ({total}, {n_out}) int32 on "
-                         f"{dev}")
-    if dev.type == "cpu":
-        out.copy_(decode_classes_plain(n0, cls16, cls32, salt, exact, n_out))
+    call raises); on the CPU, ``decode_classes_plain``.  The call is the
+    span ``decode.launch``, and on the card the library call inside it
+    the span ``decode.enqueue``: a launch that waits for room in the
+    card's launch queue waits there, so the launch's self time is the
+    wrapper's own host cost."""
+    with trace.span("decode.launch"):
+        name = "decode_classes"
+        dev = salt.device
+        if n_out not in _N_OUT_OK:
+            raise ValueError(f"{name}: n_out {n_out} not in {_N_OUT_OK}")
+        if salt.dtype != torch.int64 or salt.numel() != 1:
+            raise ValueError(
+                f"{name}: salt must be a 1-element int64 tensor")
+        # the classes that have rows, in engine order: (body, tensors)
+        classes = []
+        if n0 is not None and n0.shape[0]:
+            classes.append(("K3_zero", (n0,)))
+        for body, words, cls in (("K2_gather16", TABLE_CLS // 2, cls16),
+                                 ("K1_gather32", TABLE_CLS, cls32)):
+            if cls is None or cls[2].shape[0] == 0:
+                continue
+            _check_gather(name, words, *cls)
+            if cls[0].shape[1] != n_out:
+                raise ValueError(f"{name}: vidx has {cls[0].shape[1]} lanes "
+                                 f"a row, n_out is {n_out}")
+            classes.append((body, tuple(cls)))
+        rows = {"K3_zero": 0, "K2_gather16": 0, "K1_gather32": 0}
+        for body, tensors in classes:
+            n = tensors[-1]
+            if n.dtype != torch.int32 or n.dim() != 1 or n.device != dev:
+                raise ValueError(f"{name}: n must be (rows,) int32 on {dev}, "
+                                 f"got {tuple(n.shape)} {n.dtype} on "
+                                 f"{n.device}")
+            rows[body] = n.shape[0]
+        total = sum(rows.values())
+        if out is None:
+            out = torch.empty((total, n_out), dtype=torch.int32, device=dev)
+        elif (out.dtype != torch.int32 or tuple(out.shape) != (total, n_out)
+              or out.device != dev):
+            raise ValueError(f"{name}: out must be ({total}, {n_out}) int32 "
+                             f"on {dev}")
+        if dev.type == "cpu":
+            out.copy_(decode_classes_plain(n0, cls16, cls32, salt, exact,
+                                           n_out))
+            return out
+        if dev.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {dev}")
+        if total == 0:
+            return out
+        _check_cuda(name, salt, out, *(t for _, ts in classes for t in ts))
+        ptr = {body: [t.data_ptr() for t in ts] for body, ts in classes}
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch = cuda_ext.lib(_LIB).dint_decode_classes
+        with trace.span("decode.enqueue"):
+            rc = launch(
+                *ptr.get("K3_zero", [None]), rows["K3_zero"],
+                *ptr.get("K2_gather16", [None] * 3), rows["K2_gather16"],
+                *ptr.get("K1_gather32", [None] * 3), rows["K1_gather32"],
+                salt.data_ptr(), out.data_ptr(), n_out, int(bool(exact)),
+                stream,
+            )
+        cuda_ext.check(_LIB, "dint_decode_classes", rc)
+        decode_classes.launches += 1
+        for body, _ in classes:
+            decode_classes.bodies[body] += 1
         return out
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    if total == 0:
-        return out
-    _check_cuda(name, salt, out, *(t for _, ts in classes for t in ts))
-    ptr = {body: [t.data_ptr() for t in ts] for body, ts in classes}
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = cuda_ext.lib(_LIB).dint_decode_classes(
-        *ptr.get("K3_zero", [None]), rows["K3_zero"],
-        *ptr.get("K2_gather16", [None] * 3), rows["K2_gather16"],
-        *ptr.get("K1_gather32", [None] * 3), rows["K1_gather32"],
-        salt.data_ptr(), out.data_ptr(), n_out, int(bool(exact)), stream,
-    )
-    cuda_ext.check(_LIB, "dint_decode_classes", rc)
-    decode_classes.launches += 1
-    for body, _ in classes:
-        decode_classes.bodies[body] += 1
-    return out
 
 
 gather32.launches = 0
@@ -1185,7 +1199,8 @@ class _ClassEngine:
     def _upload(self, parts, row_tile: int) -> None:
         """``parts``: (mode, vidx (Rc, N_OUT) u8, tab (Rc, words) u32,
         n (Rc,) i32) per class in engine order; vidx and tab are None
-        for the zero class."""
+        for the zero class.  The padding and copies are the span
+        ``load.upload`` (the copies are not waited for)."""
 
         def pad_rows(a, rows):
             if a.shape[0] != rows:
@@ -1196,25 +1211,28 @@ class _ClassEngine:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-        self.row_tile = row_tile
-        self._classes: List[_Class] = []
-        base = 0
-        for mode, vidx, tab, nn in parts:
-            Rc = nn.shape[0]
-            padded = -(-Rc // row_tile) * row_tile if Rc else 0
-            c = _Class(mode, base, padded, int(nn.astype(np.int64).sum()))
-            if padded:
-                c.n = up(pad_rows(np.asarray(nn, np.int32), padded))
-                if mode:
-                    c.vidx = up(pad_rows(np.asarray(vidx, np.uint8), padded))
-                    c.tab = up(pad_rows(np.asarray(tab, np.uint32), padded)
-                               .view(np.int32))
-            self._classes.append(c)
-            base += padded
-        self.rows = base
-        self._cls_bases = {c.mode: c.base for c in self._classes}
-        # the fused launch writes the classes in this order
-        assert [c.mode for c in self._classes] == [0, 16, 32]
+        with trace.span("load.upload"):
+            self.row_tile = row_tile
+            self._classes: List[_Class] = []
+            base = 0
+            for mode, vidx, tab, nn in parts:
+                Rc = nn.shape[0]
+                padded = -(-Rc // row_tile) * row_tile if Rc else 0
+                c = _Class(mode, base, padded,
+                           int(nn.astype(np.int64).sum()))
+                if padded:
+                    c.n = up(pad_rows(np.asarray(nn, np.int32), padded))
+                    if mode:
+                        c.vidx = up(pad_rows(np.asarray(vidx, np.uint8),
+                                             padded))
+                        c.tab = up(pad_rows(np.asarray(tab, np.uint32),
+                                            padded).view(np.int32))
+                self._classes.append(c)
+                base += padded
+            self.rows = base
+            self._cls_bases = {c.mode: c.base for c in self._classes}
+            # the fused launch writes the classes in this order
+            assert [c.mode for c in self._classes] == [0, 16, 32]
 
     def _run(self, salt: torch.Tensor, exact: bool = False) -> torch.Tensor:
         """Outputs of every class for one run, in one (rows, N_OUT) int32

@@ -33,6 +33,7 @@ from ..config import (
 )
 from ..io.collection import BinaryCollection
 from ..utils import gaps as gap_mod
+from ..utils import trace
 from . import collectors
 
 
@@ -142,27 +143,29 @@ def compute_stats(
     native collector runs first (native_stats.compute_stats_native);
     where it returns None the collectors of ``collectors.py`` count the
     windows, their large merges on ``device``, and ignore the limit
-    (always full)."""
-    total = collection.num_postings() - (2 if compute_gaps else 0)
+    (always full).  Timed as the span ``build.stats``."""
     from . import native_stats
 
-    contexts = native_stats.compute_stats_native(
-        collection, compute_gaps, multi, total, padded_limit
-    )
-    if contexts is not None:
+    with trace.span("build.stats"):
+        total = collection.num_postings() - (2 if compute_gaps else 0)
+        contexts = native_stats.compute_stats_native(
+            collection, compute_gaps, multi, total, padded_limit
+        )
+        if contexts is not None:
+            return BlockStats(total, contexts)
+        if multi:
+            per_key = collectors.collect_multi(
+                gap_stream(collection, compute_gaps), device=device)
+            contexts = []
+            for sel in range(NUM_SELECTORS):
+                per_size = {s: per_key[(sel, s)]
+                            for s in collectors.TARGET_SIZES}
+                contexts.append(_filter_sort(per_size, total))
+        else:
+            per_size = collectors.collect_single(
+                gap_stream(collection, compute_gaps), device=device)
+            contexts = [_filter_sort(per_size, total)]
         return BlockStats(total, contexts)
-    if multi:
-        per_key = collectors.collect_multi(
-            gap_stream(collection, compute_gaps), device=device)
-        contexts = []
-        for sel in range(NUM_SELECTORS):
-            per_size = {s: per_key[(sel, s)] for s in collectors.TARGET_SIZES}
-            contexts.append(_filter_sort(per_size, total))
-    else:
-        per_size = collectors.collect_single(
-            gap_stream(collection, compute_gaps), device=device)
-        contexts = [_filter_sort(per_size, total)]
-    return BlockStats(total, contexts)
 
 
 def stats_cache_name(collection_path: str, multi: bool) -> str:
@@ -236,7 +239,7 @@ def store_stats(stats: BlockStats, path: str) -> None:
     """Writes the reference-format stats file plus a .npz sidecar that
     load_stats prefers (the record stream is sequentially delimited, so
     a faithful parse is a per-record walk; the sidecar keeps reloads
-    vectorized)."""
+    vectorized).  Timed as the span ``build.cache``."""
     def columnar(ctx):
         if ctx.full is not None:
             return ctx.full
@@ -246,25 +249,26 @@ def store_stats(stats: BlockStats, path: str) -> None:
             _ragged_gather(ctx.data, ctx.lengths).astype(np.uint32),
         )
 
-    cols = [columnar(ctx) for ctx in stats.contexts]
-    with open(path, "wb") as f:
-        np.asarray([stats.total_integers], dtype="<u8").tofile(f)
-        for lens, freqs, vals in cols:
-            np.asarray([lens.shape[0]], dtype="<u4").tofile(f)
-            _records_from_columnar(lens, freqs, vals).tofile(f)
-    try:
-        with open(path + ".side", "wb") as f:
-            np.asarray(
-                [_SIDE_MAGIC, stats.total_integers, len(stats.contexts)],
-                dtype="<i8",
-            ).tofile(f)
+    with trace.span("build.cache"):
+        cols = [columnar(ctx) for ctx in stats.contexts]
+        with open(path, "wb") as f:
+            np.asarray([stats.total_integers], dtype="<u8").tofile(f)
             for lens, freqs, vals in cols:
-                np.asarray([lens.shape[0]], dtype="<i8").tofile(f)
-                lens.astype("<i4").tofile(f)
-                freqs.astype("<i8").tofile(f)
-                vals.astype("<u4").tofile(f)
-    except OSError:
-        pass
+                np.asarray([lens.shape[0]], dtype="<u4").tofile(f)
+                _records_from_columnar(lens, freqs, vals).tofile(f)
+        try:
+            with open(path + ".side", "wb") as f:
+                np.asarray(
+                    [_SIDE_MAGIC, stats.total_integers, len(stats.contexts)],
+                    dtype="<i8",
+                ).tofile(f)
+                for lens, freqs, vals in cols:
+                    np.asarray([lens.shape[0]], dtype="<i8").tofile(f)
+                    lens.astype("<i4").tofile(f)
+                    freqs.astype("<i8").tofile(f)
+                    vals.astype("<u4").tofile(f)
+        except OSError:
+            pass
 
 
 def _pad_ragged(lens: np.ndarray, flat_vals: np.ndarray) -> np.ndarray:

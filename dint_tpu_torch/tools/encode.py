@@ -31,6 +31,7 @@ from ..dictionary.dictionary import (
     RectangularDictionary,
 )
 from ..index import stream as stream_mod
+from ..utils import trace
 from . import common
 
 
@@ -63,21 +64,27 @@ def encode_collection(
 ):
     """Encode a collection file as ``type_name``; a dictionary not given
     is trained (the collectors' merges, where they run, on ``device``)
-    or loaded from ``cache_dir``.  Prints and returns the stats line."""
+    or loaded from ``cache_dir``.  Prints and returns the stats line.
+    The gap transform, the encoding and the write are the span
+    ``build.encode``."""
     kind, policy = common.DINT_KINDS[type_name]
     d = load_or_train_dict(kind, policy, collection_file, dict_file,
                            cache_dir, device)
-    common.log("gap-transforming collection...")
-    gap_lists, total_ints = common.gap_lists_of(collection_file)
-    universes = [int(g.astype(np.int64).sum()) for g in gap_lists]
-    ns = [len(g) for g in gap_lists]
+    with trace.span("build.encode"):
+        common.log("gap-transforming collection...")
+        gap_lists, total_ints = common.gap_lists_of(collection_file)
+        universes = [int(g.astype(np.int64).sum()) for g in gap_lists]
+        ns = [len(g) for g in gap_lists]
 
-    common.log(f"encoding {len(gap_lists)} lists ({total_ints} ints)...")
-    if kind == "multi":
-        streams, block_lens = encode_batch.encode_multi_lists(d, gap_lists)
-    else:
-        streams, block_lens = encode_batch.encode_single_lists(d, gap_lists)
-    meta = stream_mod.write_stream(out_file, streams, ns, universes, block_lens)
+        common.log(f"encoding {len(gap_lists)} lists ({total_ints} ints)...")
+        if kind == "multi":
+            streams, block_lens = encode_batch.encode_multi_lists(
+                d, gap_lists)
+        else:
+            streams, block_lens = encode_batch.encode_single_lists(
+                d, gap_lists)
+        meta = stream_mod.write_stream(out_file, streams, ns, universes,
+                                       block_lens)
     rec = stream_mod.stream_stats_line(type_name, out_file, meta)
     common.stats_line(rec)
     return rec

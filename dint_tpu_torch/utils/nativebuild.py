@@ -25,6 +25,8 @@ import sys
 import tempfile
 from typing import Optional, Sequence
 
+from . import trace
+
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO_ROOT = os.path.dirname(_PKG_ROOT)
 NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
@@ -101,20 +103,22 @@ def ensure_so(
     """Compile ``src`` (+ ``extra_srcs``) with g++ into ``so_name`` in
     the build directory if stale; return the .so path, or None if the
     toolchain fails.  ``force`` rebuilds even when fresh (used by the
-    TLS-model fallback retry)."""
+    TLS-model fallback retry).  The check and any compile are the span
+    ``lib.build``."""
     out = os.path.join(build_dir(), so_name)
     srcs = (src, *extra_srcs)
-    if not force and fresh(out, srcs):
-        return out
-    with locked(out + ".lock"):
+    with trace.span("lib.build"):
         if not force and fresh(out, srcs):
             return out
-        # -include cstdio: native/dint_encoder.cpp calls fprintf without
-        # including <cstdio>, which GCC 13's libstdc++ headers no longer
-        # pull in on their own
-        cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-               "-fPIC", "-include", "cstdio", *extra_args, *srcs]
-        return out if compile_atomic(cmd, srcs, out) else None
+        with locked(out + ".lock"):
+            if not force and fresh(out, srcs):
+                return out
+            # -include cstdio: native/dint_encoder.cpp calls fprintf
+            # without including <cstdio>, which GCC 13's libstdc++ headers
+            # no longer pull in on their own
+            cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                   "-fPIC", "-include", "cstdio", *extra_args, *srcs]
+            return out if compile_atomic(cmd, srcs, out) else None
 
 
 def src_hash(srcs: Sequence[str]) -> str:
