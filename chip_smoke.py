@@ -34,7 +34,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    K1's shape (the floor a launch of its own pays), the fused launch,
    the three stand-alone launches back to back, K2 and K3 alone, each
    with its twin's time and its memory bound; the chained-run salt on
-   the card against the twins' on the host for the bench image; a
+   the card against the twins' on the host for the bench image (the
+   fused launches that walked, ``decode_classes.walked``: those of more
+   row tiles than the card holds blocks at once, counted beside the
+   launches on every path); a
    torch.profiler trace of 200 chained runs (device busy time and idle
    share a run); K2 and K3 also timed beside their library calls
    (``torch.gather`` on the int16 view of K2's table, ``fill_`` over K3's
@@ -371,6 +374,7 @@ X4 = "X4_byteclass_unpack"  # the byte codecs' wire engine's launch a run
 LADDER_TURN_RUNS = 500  # chained runs a turn, X1 beside the torch-op chain
 ZOO_TURN_RUNS = 200
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
+WALKED = "K123_walked"  # counts key: fused launches whose blocks walked
 # the ablation's v_gather32 is K1 alone; its v_ship runs the fused launch
 ABLATE_KERNELS = ("K1_gather32", "K6_onehot_block", "K7_onehot_group")
 # Published H100 device-memory rates (NVIDIA data sheets), by card name.
@@ -1698,13 +1702,16 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts():
-    """{wrapper: launches of its kernel} and, under ``<K1-K3> +
-    IN_FUSED``, the fused launches whose grid ran that class's body."""
+    """{wrapper: launches of its kernel}; under ``<K1-K3> + IN_FUSED``,
+    the fused launches whose grid ran that class's body, and under
+    ``WALKED`` those of more tiles than the card holds blocks at once
+    (``decode_classes.walked``)."""
     out = {}
     for m in kernel_modules():
         out.update(m.launch_counts())
-    bodies = kernel_modules()[0].fused_body_counts()
-    out.update({k + IN_FUSED: v for k, v in bodies.items()})
+    dl = kernel_modules()[0]
+    out.update({k + IN_FUSED: v for k, v in dl.fused_body_counts().items()})
+    out[WALKED] = dl.decode_classes.walked
     return out
 
 
@@ -4717,7 +4724,9 @@ def main(argv=None) -> int:
         # and the fused launches whose grid ran its body
         k["launches_by_path"] = by_path(k["name"])
         k["launches"] = sum(k["launches_by_path"].values())
-        if k["name"] != FUSED:
+        if k["name"] == FUSED:
+            k["walked_by_path"] = by_path(WALKED)
+        else:
             k["standalone_launches"] = k["launches"]
             k["launches_in_fused_by_path"] = by_path(k["name"] + IN_FUSED)
             k["launches"] += sum(k["launches_in_fused_by_path"].values())

@@ -28,21 +28,70 @@
 // and drain of a grid and, inside each block, its trips to device memory one
 // after the other: latency, several times the bytes' time.  So
 //
-//  * the engine's run is ONE launch (decode_classes_kernel): the grid covers
-//    the blocks of all three classes, a block finds its class from its index
-//    and runs that class's body; K1's few blocks ride among the thousands of
-//    K2's and K3's, which hide their latency;
-//  * the gather body (one template for K1 and K2) makes ONE trip to device
-//    memory: it starts the table's asynchronous copies (cp.async.cg, 16
-//    bytes a thread, one commit and one wait) and at once asks for its vidx
-//    word and n, so all three are in flight together and nothing waits for
-//    n.  Reading n first, to let blocks of empty rows (the padding) return
-//    without their tables, saves under 2% of a run's bytes and puts a second,
-//    dependent trip into every live block, which cost K2 some 8% on the
-//    bench image.
+//  * the engine's run is ONE launch (decode_classes_kernel) over the tiles
+//    of all three classes, each tile run by its class's body; K1's few tiles
+//    ride among the thousands of K2's and K3's, which hide their latency;
+//  * the stand-alone gather body (gather_rows, one template for K1 and K2)
+//    makes ONE trip to device memory: it starts the table's asynchronous
+//    copies (cp.async.cg, 16 bytes a thread, one commit and one wait) and at
+//    once asks for its vidx word and n, so all three are in flight together
+//    and nothing waits for n.  Reading n first, to let blocks of empty rows
+//    (the padding) return without their tables, saves under 2% of a run's
+//    bytes and puts a second, dependent trip into every live block, which
+//    cost K2 some 8% on the bench image.
 //
-// Launch shape of the gather bodies: one block of 256 threads covers
-// ROWS_PER_BLOCK = 1024 / n_out rows (4 at n_out = 256); thread t of a row
+// The fused launch is bound by its own bytes, which are more than a decode's
+// least bytes: it reads the gather image (vidx, tables, n: 2.35 B an int)
+// and writes 4 B a lane, padding lanes too.  On the benchmark's
+// 90,855,447-posting Gov2-shaped image (403,456 rows: 264,192 u16, 40,960
+// i32, 98,304 zero) a launch reads 256.9 MB and writes 413.1 MB: 670.1 MB,
+// 200.0 us at 3.35 TB/s.  On an NVIDIA H100 80GB HBM3 (700 W) torch's copy_
+// moves as many bytes in 222 us (90%), fill_ writes 413 MB at 96%.  The
+// launch's first design gave each block one tile of 1024 lanes and one trip
+// to memory (loads, wait, gather and store, exit): 82,432 blocks in some 78
+// waves, no block with loads in flight while it stores, at most 24 KiB of
+// reads in flight an SM, and only while every resident block was loading.
+// It took 240-243 us there, 82-83% of its bytes' time.  The launch is now
+// a persistent walk over row tiles:
+//
+//  * the grid is min(tiles, resident blocks), the resident count found once
+//    a device and width from the SM count and the kernel's occupancy;
+//  * block b walks tiles b, b + grid, ... (u16 tiles, then i32, then zero)
+//    through a ring of WALK_STAGES tiles in shared memory, each stage filled
+//    by bulk copies (cp.async.bulk, one thread) that complete on its
+//    mbarrier, and refilled with the tile WALK_STAGES ahead as soon as the
+//    block has read it: the next tiles' loads stay in flight while the
+//    block gathers and stores;
+//  * a walking tile is WALK_ROWS = 32 rows (24 KiB read and 32 KiB written
+//    a u16 tile at n_out 256), two stages, two blocks an SM.  Larger tiles
+//    measured faster than deeper rings of smaller ones (8 rows and four
+//    stages 244 us, 16 rows and three 233, 32 rows and two 228-230; 32 rows
+//    and one stage still 234): what the walk buys is long copies and stores
+//    and few turns of the loop more than the depth of the ring;
+//  * the stores stream (st.global.cs, evict first).  Timed alone, each
+//    launch behind a pass that leaves the L2 cache clean, the walk with
+//    plain stores gained 5%; back to back, as the engines run it, each
+//    launch also writes back the dirty output the one before left in L2,
+//    and it gained nothing (266.6-267.6 against 268.4 us a run with the
+//    benchmark's checksum between launches).  With evict-first stores it
+//    gains there too (257.7-258.4); the first design's body gains nothing
+//    from them (268.3);
+//  * a launch whose tiles fit the grid at once takes the fewest rows a tile
+//    that fit (4 for a serving call), one tile a block, one trip, so that a
+//    small launch spreads over as many blocks as the first design's.
+//
+// In the benchmark's chained runs on an NVIDIA H100 80GB HBM3 (700 W) the
+// launch takes 228.8 us a run against the first design's 242.1 (2.93 TB/s
+// of its own bytes); alone it took 228.8 against 240.6 us, 40.7 against
+// 44.0 on the 6,000-list bench image's shape, and serving-sized launches
+// are level (6.3-6.7 us either way).  Tried and left: a bulk store of
+// each tile from shared memory (1% faster alone, level back to back,
+// slower on middling launches), evict-first loads, zero tiles spread among
+// the gather tiles, the last warp to leave a stage refilling it in place
+// of a block barrier (each as fast or slower).
+//
+// Launch shape of the stand-alone gather bodies: one block of 256 threads
+// covers ROWS_PER_BLOCK = 1024 / n_out rows (4 at n_out = 256); thread t of a row
 // owns output lanes 4t..4t+3, so it reads one uchar4 of vidx and writes one
 // int4 of output (16 B, coalesced across the warp).  The rows' tables sit in
 // shared memory, so each table byte is read from device memory exactly once
@@ -65,9 +114,11 @@
 // others; and slower than fill_ (8.99 us), against a 5.03 us bound: a
 // kernel that must read its fill value from device memory pays one trip
 // that fill_, whose value is a launch argument, does not.  Inside the fused
-// launch, where K3 runs on every path, it wins in every call: the zero class
-// alone took 9.90 us against the earlier body's 11.60, and the whole launch
-// 43.78 against 45.79 (216.99 against 222.67 at 90,855,447 postings).
+// launch as it was before the walk (one block a tile), where K3 ran on every
+// path, it won in every call: the zero class alone took 9.90 us against the
+// earlier body's 11.60, and the whole launch 43.78 against 45.79 (216.99
+// against 222.67 at 90,855,447 postings).  The walk's zero tiles take K3's
+// arithmetic and the gather tiles' shape and pipeline.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -243,32 +294,295 @@ struct Classes {
   int64_t rows0, rows16, rows32;
 };
 
-// The fused class launch: blocks [0, b16) run K2's body, [b16, b16 + b32)
-// K1's, the rest (zero_blocks of the zero class) K3's (the heaviest blocks
-// first).  Each class's block count is rounded up on its own, so no block
-// straddles two classes and a block is uniform in its body, barriers
-// included.
-__global__ void __launch_bounds__(THREADS)
-decode_classes_kernel(Classes c, const long long* __restrict__ salt_p,
+// ---------------------------------------------------------------------------
+// The fused class launch: a persistent walk over row tiles.
+// ---------------------------------------------------------------------------
+
+// The walk's shape, chosen on the card (PERF.md §6): a tile is at most
+// WALK_ROWS rows of one class, and each block keeps the loads of WALK_STAGES
+// tiles in flight.  A tile's rows are a multiple of 4, so that a whole
+// tile's n is a run of 16-byte words that one bulk copy can take.
+constexpr int WALK_ROWS = 32;
+constexpr int WALK_STAGES = 2;
+constexpr int WALK_THREADS = 256;
+constexpr int WALK_BAR_BYTES = 128;  // the stages' mbarriers, before the stages
+static_assert(WALK_ROWS % 4 == 0, "a whole tile's n must be 16-byte words");
+static_assert(8 * WALK_STAGES <= WALK_BAR_BYTES, "mbarriers outgrow their room");
+
+// One stage of the ring holds a tile's vidx (WALK_ROWS * n_out bytes), its
+// table (room for the i32 class's, the wider) and its n, each part 16-byte
+// aligned.
+__host__ __device__ constexpr int walk_tab_off(int n_out) {
+  return WALK_ROWS * n_out;
+}
+__host__ __device__ constexpr int walk_n_off(int n_out) {
+  return WALK_ROWS * (n_out + TABLE_CLS * 4);
+}
+__host__ __device__ constexpr int walk_stage_bytes(int n_out) {
+  return WALK_ROWS * (n_out + TABLE_CLS * 4 + 4);
+}
+__host__ __device__ constexpr int walk_smem_bytes(int n_out) {
+  return WALK_BAR_BYTES + WALK_STAGES * walk_stage_bytes(n_out);
+}
+static_assert(walk_smem_bytes(1024) <= 232448, "a block's shared memory");
+
+__host__ __device__ __forceinline__ int64_t walk_tiles(int64_t rows,
+                                                      int tile_rows) {
+  return (rows + tile_rows - 1) / tile_rows;
+}
+
+// A launch's tiling: the rows of its tiles, the tiles of the u16 and i32
+// classes, and all its tiles.
+struct Walk {
+  int rows;
+  int64_t t16, t32, tiles;
+};
+
+// The tiling of a launch: the fewest rows a tile (a multiple of 4, up to
+// WALK_ROWS) whose tiles the resident blocks take at once, so that a small
+// launch spreads over as many blocks as it has tiles; WALK_ROWS, and a walk,
+// where even those tiles outnumber the resident blocks.
+Walk walk_of(int64_t rows0, int64_t rows16, int64_t rows32, int64_t resident) {
+  Walk w;
+  for (w.rows = 4;; w.rows += 4) {
+    w.t16 = walk_tiles(rows16, w.rows);
+    w.t32 = walk_tiles(rows32, w.rows);
+    w.tiles = w.t16 + w.t32 + walk_tiles(rows0, w.rows);
+    if (w.tiles <= resident || w.rows >= WALK_ROWS) return w;
+  }
+}
+
+// Tile t of a launch: the u16 class's tiles first, then the i32 class's,
+// then the zero class's, each class tiled on its own, so that no tile
+// straddles two bodies.
+struct Tile {
+  int mode;      // 16, 32, or 0 for the zero class
+  int rows;      // the walk's rows, or fewer in a class's last tile
+  int64_t row0;  // the tile's first row in its class
+  int64_t out0;  // and in the output
+};
+
+__device__ __forceinline__ Tile walk_tile(const Classes& c, const Walk& w,
+                                          int64_t t) {
+  Tile k;
+  int64_t rows, base;
+  if (t < w.t16) {
+    k.mode = 16, rows = c.rows16, base = c.rows0;
+  } else if (t < w.t16 + w.t32) {
+    t -= w.t16;
+    k.mode = 32, rows = c.rows32, base = c.rows0 + c.rows16;
+  } else {
+    t -= w.t16 + w.t32;
+    k.mode = 0, rows = c.rows0, base = 0;
+  }
+  k.row0 = t * w.rows;
+  const int64_t left = rows - k.row0;
+  k.rows = left < w.rows ? (int)left : w.rows;
+  k.out0 = base + k.row0;
+  return k;
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+// The one arrival of a stage's phase, with the bytes its copies will bring.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// device memory into shared memory, completed on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Start tile t's loads into the stage at `stage` (one thread): a gather
+// tile's vidx and table rows, and every tile's n where the tile is whole and
+// the body reads it (the exact zero output reads none).  A class's short
+// last tile's n need not be whole 16-byte words: its threads read it
+// themselves.  Nothing past a class's tensors is read.
+__device__ __forceinline__ void walk_issue(const Classes& c, const Walk& w,
+                                           int64_t t, int n_out, bool exact,
+                                           uint32_t stage, uint32_t bar) {
+  const Tile k = walk_tile(c, w, t);
+  const int32_t* n = k.mode == 16 ? c.n16 : k.mode == 32 ? c.n32 : c.n0;
+  const uint32_t nb =
+      k.rows == w.rows && !(k.mode == 0 && exact) ? w.rows * 4 : 0;
+  if (k.mode == 0) {
+    bar_expect(bar, nb);
+  } else {
+    const int words = k.mode == 16 ? TABLE_CLS / 2 : TABLE_CLS;
+    const uint8_t* vidx = k.mode == 16 ? c.vidx16 : c.vidx32;
+    const uint32_t* tab = k.mode == 16 ? c.tab16 : c.tab32;
+    const uint32_t vb = k.rows * n_out, tb = k.rows * words * 4;
+    bar_expect(bar, vb + tb + nb);
+    bulk_load(stage, vidx + k.row0 * n_out, vb, bar);
+    bulk_load(stage + walk_tab_off(n_out), tab + k.row0 * words, tb, bar);
+  }
+  if (nb) bulk_load(stage + walk_n_off(n_out), n + k.row0, nb, bar);
+}
+
+// A gather tile (K2's body at MODE 16, K1's at MODE 32) from its stage `s`,
+// whose n the stage holds where the tile is `whole` (the walk's rows):
+// int4 q of the tile (row q / (n_out / 4)) goes to thread q % WALK_THREADS, so
+// each store is 16 bytes and coalesced across the warp.  The stores stream
+// (st.global.cs, evict first): nothing in the launch reads the output again.
+template <int MODE>
+__device__ __forceinline__ void walk_gather(const uint8_t* s, const Tile& k,
+                                            bool whole,
+                                            const int32_t* __restrict__ n,
+                                            uint32_t salt, uint32_t add,
+                                            int32_t* __restrict__ out,
+                                            int n_out) {
+  constexpr int WORDS = MODE == 32 ? TABLE_CLS : TABLE_CLS / 2;
+  const int row_shift = __ffs(n_out / 4) - 1;
+  const uint32_t* tab_s =
+      reinterpret_cast<const uint32_t*>(s + walk_tab_off(n_out));
+  const int32_t* n_s = reinterpret_cast<const int32_t*>(s + walk_n_off(n_out));
+  int4* o = reinterpret_cast<int4*>(out + k.out0 * n_out);
+  for (int q = threadIdx.x; q < k.rows << row_shift; q += WALK_THREADS) {
+    const int lr = q >> row_shift;
+    const int j = (q & ((1 << row_shift) - 1)) * 4;
+    const uchar4 ix = reinterpret_cast<const uchar4*>(s)[q];
+    const int nr = whole ? n_s[lr] : __ldg(n + k.row0 + lr);
+    const uint32_t* t = tab_s + lr * WORDS;
+    int4 v;
+    v.x = j + 0 < nr ? entry<MODE>(t, ix.x, salt, add) : 0;
+    v.y = j + 1 < nr ? entry<MODE>(t, ix.y, salt, add) : 0;
+    v.z = j + 2 < nr ? entry<MODE>(t, ix.z, salt, add) : 0;
+    v.w = j + 3 < nr ? entry<MODE>(t, ix.w, salt, add) : 0;
+    __stcs(o + q, v);
+  }
+}
+
+// A zero-class tile (K3's body): the fill on valid lanes, 0 elsewhere, in
+// the gather tiles' store order; the exact output is 0 and reads no n.
+__device__ __forceinline__ void walk_zero(const uint8_t* s, const Tile& k,
+                                          bool whole,
+                                          const int32_t* __restrict__ n,
+                                          int32_t fill, bool exact,
+                                          int32_t* __restrict__ out,
+                                          int n_out) {
+  const int row_shift = __ffs(n_out / 4) - 1;
+  const int32_t* n_s = reinterpret_cast<const int32_t*>(s + walk_n_off(n_out));
+  int4* o = reinterpret_cast<int4*>(out + k.out0 * n_out);
+  for (int q = threadIdx.x; q < k.rows << row_shift; q += WALK_THREADS) {
+    const int lr = q >> row_shift;
+    const int j = (q & ((1 << row_shift) - 1)) * 4;
+    const int nr = exact ? 0 : whole ? n_s[lr] : __ldg(n + k.row0 + lr);
+    __stcs(o + q, make_int4(j + 0 < nr ? fill : 0, j + 1 < nr ? fill : 0,
+                            j + 2 < nr ? fill : 0, j + 3 < nr ? fill : 0));
+  }
+}
+
+// The fused class launch.  Block b walks tiles b, b + gridDim.x, ...; its
+// k-th tile lands in stage k % WALK_STAGES, whose mbarrier completes once a
+// round (parity k / WALK_STAGES % 2).  Thread 0 starts the first stages'
+// loads, and refills a stage with the block's tile WALK_STAGES ahead as
+// soon as every thread has read it, so that the next tiles' loads are in
+// flight while the block gathers and stores this one.  With no more tiles
+// than the grid holds, each block takes one tile.
+__global__ void __launch_bounds__(WALK_THREADS)
+decode_classes_kernel(Classes c, Walk w, const long long* __restrict__ salt_p,
                       int32_t* __restrict__ out, int n_out, int exact) {
-  __shared__ __align__(16) uint32_t tab_s[TAB_S_WORDS];
+  extern __shared__ __align__(128) uint8_t walk_s[];
+  const int64_t tiles = w.tiles;
+  const uint32_t bars = (uint32_t)__cvta_generic_to_shared(walk_s);
+  const uint32_t stages = bars + WALK_BAR_BYTES;
+  const int stage_bytes = walk_stage_bytes(n_out);
+  const bool ex = exact != 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WALK_STAGES; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    int64_t t = blockIdx.x;
+    for (int s = 0; s < WALK_STAGES && t < tiles; ++s, t += gridDim.x)
+      walk_issue(c, w, t, n_out, ex, stages + s * stage_bytes, bars + 8 * s);
+  }
   const uint32_t salt = (uint32_t)__ldg(salt_p);
-  const int64_t b16 = class_blocks(c.rows16, n_out);
-  const int64_t b32 = class_blocks(c.rows32, n_out);
-  int64_t b = blockIdx.x;
-  if (b < b16) {
-    gather_rows<16>(c.vidx16, c.tab16, c.n16, salt, exact != 0,
-                    out + c.rows0 * n_out, c.rows16, n_out, b, tab_s);
-    return;
+  const uint32_t add = ex ? 0u : salt;
+  __syncthreads();
+  int s = 0;
+  uint32_t parity = 0;
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    bar_wait(bars + 8 * s, parity);
+    const Tile k = walk_tile(c, w, t);
+    const bool whole = k.rows == w.rows;
+    const uint8_t* st = walk_s + WALK_BAR_BYTES + s * stage_bytes;
+    if (k.mode == 16)
+      walk_gather<16>(st, k, whole, c.n16, salt, add, out, n_out);
+    else if (k.mode == 32)
+      walk_gather<32>(st, k, whole, c.n32, salt, add, out, n_out);
+    else
+      walk_zero(st, k, whole, c.n0, (int32_t)salt, ex, out, n_out);
+    __syncthreads();  // every thread is done with the stage
+    const int64_t next = t + (int64_t)WALK_STAGES * gridDim.x;
+    if (threadIdx.x == 0 && next < tiles) {
+      // the stage's reads came through the generic proxy, its refill comes
+      // through the async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      walk_issue(c, w, next, n_out, ex, stages + s * stage_bytes,
+                 bars + 8 * s);
+    }
+    if (++s == WALK_STAGES) s = 0, parity ^= 1;
   }
-  b -= b16;
-  if (b < b32) {
-    gather_rows<32>(c.vidx32, c.tab32, c.n32, salt, exact != 0,
-                    out + (c.rows0 + c.rows16) * n_out, c.rows32, n_out, b,
-                    tab_s);
-    return;
+}
+
+// The walk's resident blocks on the current device at n_out: the SMs times
+// the blocks an SM holds at the launch's shared memory, found once a device
+// and width and kept.  The first call on a device also lets the kernel take
+// the shared memory of the widest rows, past 48 KB.
+constexpr int WALK_DEVICES = 64;  // devices whose counts are kept
+
+int walk_resident(int n_out, int64_t* resident) {
+  static int64_t kept[WALK_DEVICES][4];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const int w = __builtin_ctz(n_out / 128);  // 128, 256, 512, 1024: 0-3
+  if (dev < WALK_DEVICES && kept[dev][w]) {
+    *resident = kept[dev][w];
+    return 0;
   }
-  zero_rows(c.n0, (int32_t)salt, exact != 0, out, c.rows0, n_out, b - b32);
+  e = cudaFuncSetAttribute(decode_classes_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           walk_smem_bytes(1024));
+  if (e != cudaSuccess) return (int)e;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, decode_classes_kernel, WALK_THREADS, walk_smem_bytes(n_out));
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t r = (int64_t)sms * per_sm;
+  if (dev < WALK_DEVICES) kept[dev][w] = r;
+  *resident = r;
+  return 0;
 }
 
 // Nothing: the floor that any launch of its own pays, for the measurements.
@@ -330,12 +644,28 @@ int dint_decode_classes(const void* n0, int64_t rows0, const void* vidx16,
   c.rows0 = rows0;
   c.rows16 = rows16;
   c.rows32 = rows32;
-  const int64_t blocks = zero_blocks(rows0, n_out) +
-                         class_blocks(rows16, n_out) +
-                         class_blocks(rows32, n_out);
-  decode_classes_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      c, (const long long*)salt, (int32_t*)out, n_out, exact);
+  int64_t resident = 0;
+  const int rc = walk_resident(n_out, &resident);
+  if (rc) return rc;
+  const Walk w = walk_of(rows0, rows16, rows32, resident);
+  decode_classes_kernel<<<(unsigned)(w.tiles < resident ? w.tiles : resident),
+                          WALK_THREADS, walk_smem_bytes(n_out),
+                          (cudaStream_t)stream>>>(
+      c, w, (const long long*)salt, (int32_t*)out, n_out, exact);
   return (int)cudaGetLastError();
+}
+
+// The fused launch's walk at n_out on the current device: shape[0] the
+// resident blocks (the largest grid a launch takes), shape[1] the most rows
+// a tile has.  A launch of more tiles of those rows than resident blocks
+// walks: its blocks take more than one tile each.
+int dint_decode_classes_walk(int n_out, int64_t* shape) {
+  int64_t resident = 0;
+  const int rc = walk_resident(n_out, &resident);
+  if (rc) return rc;
+  shape[0] = resident;
+  shape[1] = WALK_ROWS;
+  return 0;
 }
 
 // `blocks` blocks of THREADS threads that do nothing.

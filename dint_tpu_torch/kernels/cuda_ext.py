@@ -34,6 +34,8 @@ _SIGNATURES = {
         "dint_decode_classes": [_P, ctypes.c_int64, _P, _P, _P, ctypes.c_int64,
                                 _P, _P, _P, ctypes.c_int64, _P, _P,
                                 ctypes.c_int, ctypes.c_int, _P],
+        # n_out, host int64[2] (resident blocks, most rows a tile)
+        "dint_decode_classes_walk": [ctypes.c_int, _P],
         # blocks, stream
         "dint_empty_launch": [ctypes.c_int64, _P],
     },

@@ -43,6 +43,7 @@ version of K6 and K7 (``decode_pallas.py``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 from dataclasses import dataclass
@@ -561,6 +562,25 @@ def decode_classes_plain(n0, cls16, cls32, salt, exact: bool = False,
     return torch.cat(parts)
 
 
+_WALK = {}  # (device index, n_out): (resident blocks, most rows a tile)
+
+
+def _walk_shape(dev, n_out):
+    """(resident blocks, most rows a tile) of the fused launch's walk on
+    the CUDA device ``dev`` at ``n_out``: asked of the library once a
+    device and width, then kept.  A launch walks where its tiles of the
+    most rows outnumber the resident blocks."""
+    shape = _WALK.get((dev.index, n_out))
+    if shape is None:
+        buf = (ctypes.c_int64 * 2)()
+        with torch.cuda.device(dev):
+            rc = cuda_ext.lib(_LIB).dint_decode_classes_walk(
+                n_out, ctypes.addressof(buf))
+        cuda_ext.check(_LIB, "dint_decode_classes_walk", rc)
+        shape = _WALK[(dev.index, n_out)] = (buf[0], buf[1])
+    return shape
+
+
 def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
                    n_out: int = N_OUT, out=None):
     """One engine run over the three width classes: ``n0`` (R0,) int32 of
@@ -574,7 +594,9 @@ def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
     span ``decode.launch``, and on the card the library call inside it
     the span ``decode.enqueue``: a launch that waits for room in the
     card's launch queue waits there, so the launch's self time is the
-    wrapper's own host cost."""
+    wrapper's own host cost.  A launch of more row tiles than the card
+    holds blocks at once walks (its blocks take several tiles each) and
+    counts in ``decode_classes.walked``."""
     with trace.span("decode.launch"):
         name = "decode_classes"
         dev = salt.device
@@ -635,6 +657,10 @@ def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
         decode_classes.launches += 1
         for body, _ in classes:
             decode_classes.bodies[body] += 1
+        resident, tr = _walk_shape(dev, n_out)
+        if (-(-rows["K3_zero"] // tr) - (-rows["K2_gather16"] // tr)
+                - (-rows["K1_gather32"] // tr)) > resident:
+            decode_classes.walked += 1
         return out
 
 
@@ -644,6 +670,8 @@ zero.launches = 0
 decode_classes.launches = 0
 # fused launches whose grid held rows of each class body
 decode_classes.bodies = {"K1_gather32": 0, "K2_gather16": 0, "K3_zero": 0}
+# fused launches whose tiles outnumbered the grid, so that blocks walked
+decode_classes.walked = 0
 
 KERNELS = {"K1_gather32": gather32, "K2_gather16": gather16, "K3_zero": zero,
            "K123_decode_classes": decode_classes}
@@ -654,6 +682,7 @@ def reset_launch_counts() -> None:
         w.launches = 0
     for k in decode_classes.bodies:
         decode_classes.bodies[k] = 0
+    decode_classes.walked = 0
 
 
 def launch_counts() -> Dict[str, int]:

@@ -183,8 +183,11 @@ def test_k3_alone_equals_plain_and_stays_inside(card, n_out):
 def test_fused_launch_equals_plain_at_every_width(card, n_out):
     """The fused class launch in both flags and for the three salts, with
     every class, with empty classes and with the zero class alone, at row
-    counts that are no multiple of a block: equal to its plain version,
-    the row after its output untouched."""
+    counts that are no multiple of a tile, and on mixes of tens of
+    thousands of rows whose blocks walk many tiles: equal to its plain
+    version, the row after its output untouched, and counted in
+    ``decode_classes.walked`` exactly where its tiles outnumber the
+    card's resident blocks."""
     rng = np.random.default_rng(n_out)
 
     def cls(rows, words):
@@ -199,15 +202,30 @@ def test_fused_launch_equals_plain_at_every_width(card, n_out):
     c16, c32 = cls(31, 128), cls(9, 256)
     cases = [(n0, c16, c32), (n0, None, None), (None, c16, c32),
              (n0, None, c32), (n0[:1], c16, None)]
+    # launches of more tiles than the card holds blocks, so that blocks
+    # walk, each class no multiple of a tile: the engines' mix and an
+    # i32-heavy one
+    cases += [(zero_class(20_001, n_out, 6).to(card), cls(40_003, 128),
+               cls(6_005, 256)),
+              (zero_class(1_003, n_out, 7).to(card), cls(3_001, 128),
+               cls(30_007, 256))]
+    resident, tile_rows = dl._walk_shape(card, n_out)
     for n0_, c16_, c32_ in cases:
         rows = sum(0 if c is None else c.shape[0]
                    for c in (n0_, c16_ and c16_[2], c32_ and c32_[2]))
+        walks = rows > 10_000
+        tiles = sum(-(-c.shape[0] // tile_rows)
+                    for c in (n0_, c16_ and c16_[2], c32_ and c32_[2])
+                    if c is not None)
+        assert (tiles > resident) == walks, (rows, tiles, resident)
         for s in SALTS:
             salt = torch.tensor([s], dtype=torch.int64, device=card)
             for exact in (False, True):
                 out, buf = guarded(rows, n_out, card)
+                before = dl.decode_classes.walked
                 dl.decode_classes(n0_, c16_, c32_, salt, exact, n_out,
                                   out=out)
+                assert dl.decode_classes.walked == before + walks, rows
                 torch.cuda.synchronize()
                 want = dl.decode_classes_plain(n0_, c16_, c32_, salt, exact,
                                                n_out)

@@ -1,15 +1,21 @@
-"""K3's grid (``csrc/decode_gather.cu``), alone and inside the fused class
-launch, mirrored in numpy on the CPU.
+"""K3's grid (``csrc/decode_gather.cu``) alone, and the fused class
+launch's walk over row tiles, mirrored in numpy on the CPU.
 
-The kernel runs on the card only.  Here its launch shape is read from
-the source (``THREADS``, ``LANES_PER_BLOCK``, ``ZERO_VEC``), and a
-numpy mirror of ``zero_blocks``, ``class_blocks``, ``zero_rows`` and the
-fused launch's block partition lists, for every block and thread, the
-16-byte stores it makes and the values it writes.  Each output lane of
-the zero class must be written exactly once, nothing past the class (a
-last block only partly filled), and the values must equal the plain
-version (``zero_plain``, ``decode_classes_plain``), which
-``test_torch_decode_local`` holds to the reference's Pallas body.
+The kernels run on the card only.  Here their launch shapes are read
+from the source (``THREADS``, ``LANES_PER_BLOCK``, ``ZERO_VEC``,
+``TABLE_CLS``, ``WALK_ROWS``, ``WALK_STAGES``).  A numpy mirror of
+``zero_blocks`` and ``zero_rows`` lists, for every block and thread, the
+16-byte stores K3 makes and the values it writes: each output lane of
+the class written exactly once, nothing past the class (a last block
+only partly filled), the values those of ``zero_plain``.  A mirror of
+the fused launch's walk (``walk_tile``, ``walk_issue``, the ring of
+stages and its mbarrier phases, the three bodies' stores) holds, for
+grids that take every tile at once and grids capped below the tile
+count, that every lane of the (R0 + R16 + R32, n_out) buffer is written
+exactly once by its own class's body, that every bulk copy is 16-byte
+sized and aligned and stays inside its tensor and its stage, and that
+the values equal ``decode_classes_plain``, which
+``test_torch_decode_local`` holds to the reference's Pallas bodies.
 """
 
 import os
@@ -35,11 +41,6 @@ def constant(name):
 THREADS = constant("THREADS")
 LANES_PER_BLOCK = constant("LANES_PER_BLOCK")
 ZERO_VEC = constant("ZERO_VEC")
-
-
-def class_blocks(rows, n_out):
-    rpb = LANES_PER_BLOCK // n_out
-    return -(-rows // rpb)
 
 
 def zero_blocks(rows, n_out):
@@ -70,18 +71,6 @@ def zero_values(g, n, fill, n_out, exact=False):
     nr = n[g // per_row][:, None].astype(np.int64)
     j = (g % per_row)[:, None] * 4 + np.arange(4)[None, :]
     return np.where(j < nr, fill, 0)
-
-
-def gather_lanes(rows, n_out, block):
-    """(row, first lane) of each thread of a gather-body block that owns
-    a row (the others return at once)."""
-    per_row = n_out // 4
-    rpb = LANES_PER_BLOCK // n_out
-    t = np.arange(THREADS)
-    lr = t // per_row
-    r = block * rpb + lr
-    keep = (lr < rpb) & (r < rows)
-    return r[keep], (t[keep] - lr[keep] * per_row) * 4
 
 
 def n_for(rows, n_out, seed):
@@ -129,16 +118,232 @@ def test_k3_alone_writes_each_lane_once(n_out):
             np.testing.assert_array_equal(out.reshape(rows, n_out), want)
 
 
+# ---------------------------------------------------------------------------
+# The fused class launch: a persistent walk over row tiles
+# ---------------------------------------------------------------------------
+
+WALK_ROWS = constant("WALK_ROWS")
+WALK_STAGES = constant("WALK_STAGES")
+WALK_THREADS = constant("WALK_THREADS")
+TABLE_CLS = constant("TABLE_CLS")
+WORDS = {16: TABLE_CLS // 2, 32: TABLE_CLS}
+CARD_RESIDENT = 132 * 8  # more blocks than any case below has tiles
+
+
+def walk_tiles(rows, tile_rows=WALK_ROWS):
+    return -(-rows // tile_rows)
+
+
+def walk_of(rows, resident):
+    """``walk_of``: the rows of a launch's tiles, the fewest (a multiple
+    of 4, up to WALK_ROWS) whose tiles the resident blocks take at once,
+    else WALK_ROWS; and the launch's tiles."""
+    for tr in range(4, WALK_ROWS + 1, 4):
+        tiles = sum(walk_tiles(r, tr) for r in rows)
+        if tiles <= resident or tr == WALK_ROWS:
+            return tr, tiles
+
+
+def walk_tile(rows, tr, t):
+    """(mode, rows, first row in its class, first row in the output) of
+    tile ``t`` of ``tr`` rows of classes of ``rows`` = (R0, R16, R32)
+    rows: the u16 class's tiles, then the i32 class's, then the zero
+    class's."""
+    r0, r16, r32 = rows
+    t16, t32 = walk_tiles(r16, tr), walk_tiles(r32, tr)
+    if t < t16:
+        mode, n, base = 16, r16, r0
+    elif t < t16 + t32:
+        t, mode, n, base = t - t16, 32, r32, r0 + r16
+    else:
+        t, mode, n, base = t - t16 - t32, 0, r0, 0
+    row0 = t * tr
+    return mode, min(tr, n - row0), row0, base + row0
+
+
+def stage_layout(n_out):
+    """(vidx, table, n) byte offsets of a stage, and its size: room for
+    WALK_ROWS rows of the i32 class, whatever the tile's rows."""
+    tab, n = WALK_ROWS * n_out, WALK_ROWS * (n_out + TABLE_CLS * 4)
+    return 0, tab, n, n + WALK_ROWS * 4
+
+
+def walk_issue(tile, tr, n_out, exact):
+    """The bulk copies that start a tile's loads, each (tensor name, byte
+    offset in it, bytes, byte offset in the stage), and the bytes the
+    stage's mbarrier is told to expect."""
+    mode, rows, row0, _ = tile
+    _, tab_off, n_off, _ = stage_layout(n_out)
+    copies = []
+    if mode:
+        words = WORDS[mode]
+        copies += [(f"vidx{mode}", row0 * n_out, rows * n_out, 0),
+                   (f"tab{mode}", row0 * words * 4, rows * words * 4, tab_off)]
+    if rows == tr and not (mode == 0 and exact):
+        copies.append((f"n{mode}", row0 * 4, tr * 4, n_off))
+    return copies, sum(c[2] for c in copies)
+
+
+def u32(a):
+    return np.asarray(a, np.int64) & 0xFFFFFFFF
+
+
+def walk_mirror(cls, rows, n_out, resident, salt, exact):
+    """The fused launch's walk in numpy, thread by thread and stage by
+    stage: every block's tiles, each tile's bulk copies into its stage of
+    the ring, the mbarrier phase each wait passes on, and the int4 each
+    thread stores.  Returns (the output buffer, the count of writes of
+    each lane, the body that wrote each lane, the grid, the tiles' rows)."""
+    tr, tiles = walk_of(rows, resident)
+    grid = min(tiles, resident)
+    total = sum(rows)
+    per_row, row_shift = n_out // 4, (n_out // 4).bit_length() - 1
+    _, tab_off, n_off, stage_bytes = stage_layout(n_out)
+    raw = {k: v.view(np.uint8).reshape(-1) for k, v in cls.items()}
+    out = np.full((total, n_out), -7, np.int64)
+    writes = np.zeros((total, n_out), np.int64)
+    owner = np.full((total, n_out), -1, np.int64)
+    add = 0 if exact else salt
+    for b in range(grid):
+        ring = np.zeros((WALK_STAGES, stage_bytes), np.uint8)
+        owned = [None] * WALK_STAGES  # the tile each stage holds
+        phases = [0] * WALK_STAGES  # mbarrier phases completed
+
+        def issue(t, s):
+            tile = walk_tile(rows, tr, t)
+            copies, expect = walk_issue(tile, tr, n_out, exact)
+            for name, src, nbytes, dst in copies:
+                assert nbytes % 16 == 0 and src % 16 == 0 and dst % 16 == 0
+                assert src + nbytes <= raw[name].size, (name, tile)
+                assert dst + nbytes <= stage_bytes
+                ring[s, dst : dst + nbytes] = raw[name][src : src + nbytes]
+            assert expect < 1 << 20  # an mbarrier's transaction count
+            owned[s] = t
+            phases[s] += 1  # the copies land: the phase completes
+
+        mine = list(range(b, tiles, grid))
+        for k, t in enumerate(mine[:WALK_STAGES]):
+            issue(t, k)
+        for k, t in enumerate(mine):
+            s, parity = k % WALK_STAGES, (k // WALK_STAGES) & 1
+            # try_wait.parity passes once the phase of that parity is done
+            assert owned[s] == t and phases[s] == k // WALK_STAGES + 1
+            assert phases[s] % 2 != parity
+            mode, trows, row0, out0 = walk_tile(rows, tr, t)
+            q = np.arange(trows * per_row)  # int4 q: thread q % WALK_THREADS
+            lr, j = q >> row_shift, (q & (per_row - 1)) * 4
+            lane = j[:, None] + np.arange(4)
+            if mode == 0 and exact:
+                nr = np.zeros_like(lr)
+            elif trows == tr:
+                nr = ring[s, n_off : n_off + 4 * tr].view(np.int32)[lr]
+            else:  # a class's short last tile: its threads read n
+                nr = cls[f"n{mode}"][row0 + lr]
+            valid = lane < nr[:, None]
+            if mode == 0:
+                val = np.full(lane.shape, salt, np.int64)
+            else:
+                ix = ring[s, : trows * n_out].reshape(trows, n_out)[
+                    lr[:, None], lane].astype(np.int64)
+                tab = ring[s, tab_off : tab_off + trows * WORDS[mode] * 4
+                           ].view(np.uint32).reshape(trows, WORDS[mode])
+                if mode == 32:
+                    val = tab[lr[:, None], ix].astype(np.int64)
+                else:
+                    w = tab[lr[:, None], ix >> 1].astype(np.int64)
+                    val = u32(np.where(ix & 1, w >> 16, w) & 0xFFFF) + add
+            rr = out0 + lr[:, None] + 0 * lane
+            out[rr, lane] = np.where(valid, u32(val), 0)
+            np.add.at(writes, (rr, lane), 1)
+            owner[rr, lane] = mode
+            nxt = k + WALK_STAGES
+            if nxt < len(mine):
+                issue(mine[nxt], s)
+    return out, writes, owner, grid, tr
+
+
+def walk_classes(rows, n_out, seed):
+    """{name: numpy array} of classes of ``rows`` = (R0, R16, R32) rows."""
+    rng = np.random.default_rng(seed)
+    r0, r16, r32 = rows
+    cls = {"n0": n_for(r0, n_out, seed)}
+    for mode, r in ((16, r16), (32, r32)):
+        cls[f"vidx{mode}"] = rng.integers(0, 256, (r, n_out)).astype(np.uint8)
+        cls[f"tab{mode}"] = rng.integers(0, 1 << 32, (r, WORDS[mode]),
+                                         dtype=np.uint64).astype(np.uint32)
+        cls[f"n{mode}"] = n_for(r, n_out, seed + mode)
+    return cls
+
+
+def check_walk(rows, n_out, resident, seed, salts=SALTS):
+    """The walk over classes of ``rows`` rows with ``resident`` blocks:
+    every lane of the (R0 + R16 + R32, n_out) buffer written once, by
+    its own class's body, and the values of ``decode_classes_plain`` in
+    both flags and for ``salts``.  Returns (grid, the tiles' rows)."""
+    cls = walk_classes(rows, n_out, seed)
+    r0, r16, r32 = rows
+
+    def t(name):
+        a = cls[name]
+        return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                else a)
+    args = (t("n0") if r0 else None,
+            (t("vidx16"), t("tab16"), t("n16")) if r16 else None,
+            (t("vidx32"), t("tab32"), t("n32")) if r32 else None)
+    for salt in salts:
+        for exact in (False, True):
+            out, writes, owner, grid, tr = walk_mirror(
+                cls, rows, n_out, resident, salt, exact)
+            assert (writes == 1).all(), (rows, n_out, resident, salt)
+            assert (owner[:r0] == 0).all()
+            assert (owner[r0 : r0 + r16] == 16).all()
+            assert (owner[r0 + r16 :] == 32).all()
+            want = t_dl.decode_classes_plain(*args, torch.tensor([salt]),
+                                             exact, n_out).numpy()
+            np.testing.assert_array_equal(
+                out, u32(want), err_msg=f"{rows} {n_out} {salt} {exact}")
+    return grid, tr
+
+
+def test_walk_shape_read_from_the_source():
+    """A whole tile's n is 16-byte words (one bulk copy), and a stage's
+    parts stay 16-byte aligned at every width."""
+    assert WALK_ROWS % 4 == 0 and WALK_STAGES >= 1
+    assert WALK_THREADS % 32 == 0
+    for n_out in N_OUTS:
+        assert all(off % 16 == 0 for off in stage_layout(n_out))
+
+
+@pytest.mark.parametrize("rows, resident, tile_rows, walks", [
+    ((37, 301, 19), 264, 4, False),  # a serving call: the fewest rows
+    ((300, 2500, 200), 264, 12, False),  # more rows a tile, one a block
+    ((45, 101, 27), 40, 8, False),
+    ((15632, 54280, 716), 264, WALK_ROWS, True),  # the bench image: walks
+    ((98304, 264192, 40960), 660, WALK_ROWS, True),
+])
+def test_walk_tile_rows_adapt_to_the_launch(rows, resident, tile_rows,
+                                           walks):
+    """A launch takes the fewest rows a tile whose tiles the resident
+    blocks hold at once, and walks (tiles of WALK_ROWS rows, more than
+    the grid) only where even those outnumber the resident blocks, as
+    ``decode_classes`` counts it."""
+    tr, tiles = walk_of(rows, resident)
+    assert tr == min(tile_rows, WALK_ROWS)
+    assert (tiles > resident) == walks
+    assert walks == (sum(walk_tiles(r) for r in rows) > resident)
+
+
 @pytest.mark.parametrize("present", ["all", "no_u16", "zero_alone",
                                      "no_zero"])
 @pytest.mark.parametrize("n_out", N_OUTS)
 def test_fused_partition_writes_each_lane_once(n_out, present):
-    """The fused launch's grid (``dint_decode_classes``: u16 blocks, then
-    i32, then zero_blocks of the zero class) over classes of row counts
-    that are no multiple of a block, some empty: every lane of the
-    (R0 + R16 + R32, n_out) buffer written once, by its own class's body;
-    the zero rows' values those of ``decode_classes_plain`` in both
-    flags."""
+    """The fused launch (``dint_decode_classes``: the walk over u16 tiles,
+    then i32, then zero, a grid of min(tiles, resident blocks)) over
+    classes of row counts that are no multiple of a tile, some empty, on
+    a card that holds every tile at once, so that each block takes one:
+    every lane of the (R0 + R16 + R32, n_out) buffer written once, by
+    its own class's body; the values those of ``decode_classes_plain``
+    in both flags."""
     per_block = THREADS * ZERO_VEC // (n_out // 4)
     rows = {"zero": 2 * per_block + 3, "u16": 37, "i32": 5}
     if present == "no_u16":
@@ -147,38 +352,29 @@ def test_fused_partition_writes_each_lane_once(n_out, present):
         rows["u16"] = rows["i32"] = 0
     elif present == "no_zero":
         rows["zero"] = 0
-    r0, r16, r32 = rows["zero"], rows["u16"], rows["i32"]
-    n0 = n_for(r0, n_out, 3)
-    b16, b32 = class_blocks(r16, n_out), class_blocks(r32, n_out)
-    grid = b16 + b32 + zero_blocks(r0, n_out)
-    owner = np.full((r0 + r16 + r32, n_out), -1, np.int64)
-    writes = np.zeros_like(owner)
-    for salt in (0, 0x9E3779B9):
-        for exact in (False, True):
-            fill = i32(salt)
-            zero_out = np.full((r0 * n_out // 4, 4), -7, np.int64)
-            for b in range(grid):
-                if b < b16 + b32:  # the gather bodies: K2's, then K1's
-                    body, base, cls_rows, blk = ((16, r0, r16, b) if b < b16
-                                                 else (32, r0 + r16, r32,
-                                                       b - b16))
-                    r, j = gather_lanes(cls_rows, n_out, blk)
-                    lanes = (base + r)[:, None], j[:, None] + np.arange(4)
-                else:
-                    body = 0
-                    g = zero_stores(r0, n_out, b - b16 - b32)
-                    zero_out[g] = zero_values(g, n0, fill, n_out, exact)
-                    lanes = ((g // (n_out // 4))[:, None],
-                             (g % (n_out // 4))[:, None] * 4 + np.arange(4))
-                if salt == 0 and not exact:
-                    np.add.at(writes, lanes, 1)
-                    owner[lanes] = body
-            if r0:
-                want = t_dl.decode_classes_plain(
-                    torch.from_numpy(n0), None, None,
-                    torch.tensor([salt]), exact, n_out).numpy()
-                np.testing.assert_array_equal(zero_out.reshape(r0, n_out),
-                                              want)
-    assert (writes == 1).all()
-    assert (owner[:r0] == 0).all() and (owner[r0 : r0 + r16] == 16).all()
-    assert (owner[r0 + r16 :] == 32).all()
+    rows = (rows["zero"], rows["u16"], rows["i32"])
+    grid, tr = check_walk(rows, n_out, CARD_RESIDENT, 3)
+    assert tr == 4 and grid == sum(walk_tiles(r, 4) for r in rows)
+
+
+@pytest.mark.parametrize("resident", [1, 3, 40, 132, 264])
+@pytest.mark.parametrize("n_out", N_OUTS)
+def test_fused_walk_writes_each_lane_once(n_out, resident):
+    """The walk with a grid capped below the tile count (a card holding
+    ``resident`` blocks at once), so that every block walks several
+    tiles of WALK_ROWS rows through its ring of stages, and (40) a grid
+    that takes every tile of a middling launch at once: each lane
+    written once by its own class's body, every class's last tile short,
+    the values those of ``decode_classes_plain`` in both flags."""
+    if resident <= 40:
+        rows, salts = (45, 101, 27), SALTS
+    else:  # more tiles of WALK_ROWS rows than resident blocks
+        k = resident * WALK_ROWS // 140
+        rows, salts = (20 * k + 3, 130 * k + 5, 10 * k + 1), (0x9E3779B9,)
+    assert all(r % 4 for r in rows)
+    grid, tr = check_walk(rows, n_out, resident, resident, salts)
+    tiles = sum(walk_tiles(r) for r in rows)
+    if resident == 40:
+        assert tr < WALK_ROWS and grid == walk_of(rows, 40)[1] <= 40
+    else:
+        assert tr == WALK_ROWS and grid == resident < tiles
