@@ -28,15 +28,21 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    bench image's shapes and on an edge-case batch, with salts 0, 1 and
    0xFFFFFFFF; the fused class launch (one grid over the three classes,
    what the engines run) against its plain version in both flags (raw,
-   exact) on the bench image's classes and on edge batches with an
-   empty class and row counts that are no multiple of a block's rows;
-   timed in turns (cold L2, CUDA events): K1 alone, an empty grid of
-   K1's shape (the floor a launch of its own pays), the fused launch,
-   the three stand-alone launches back to back, K2 and K3 alone, each
-   with its twin's time and its memory bound; the chained-run salt on
+   exact) on the bench image's classes, trimmed as the engine keeps them
+   and as padded triples, and on edge batches with an empty class and
+   row counts that are no multiple of a block's rows, padded and
+   trimmed; the classes at odds of ``fused_refused_cases`` refused with
+   no launch; timed in turns (cold L2, CUDA events): K1 alone, an empty
+   grid of K1's shape (the floor a launch of its own pays), the fused
+   launch trimmed and padded, the three stand-alone launches back to
+   back, K2 and K3 alone, each with its twin's time and its memory
+   bound (the fused launch's from the trimmed bytes); the fused launch's
+   two forms chained as the benchmark runs it and on serving-sized
+   heads (37/301/19 and 3/40/2 rows); the chained-run salt on
    the card against the twins' on the host for the bench image (the
    fused launches that walked, ``decode_classes.walked``: those of more
-   row tiles than the card holds blocks at once, counted beside the
+   row tiles than the card holds blocks at once, and those that read a
+   class trimmed, ``decode_classes.trimmed``, counted beside the
    launches on every path); a
    torch.profiler trace of 200 chained runs (device busy time and idle
    share a run); K2 and K3 also timed beside their library calls
@@ -254,7 +260,14 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 31. ``dint_tpu_torch.entry.entry()``'s ``fn`` on the card (one fused
     class launch, counted from zero) against its plain version under
     ``torch.equal`` and, on every valid lane, against ``entry("cpu")``
-    (the reference's portable branch).
+    (the reference's portable branch);
+32. the fused launch on the benchmark cell's image
+    (``benchmark/configs/gov2s-rect.json``: 90,855,447 postings from
+    ``--seed``, encoded and planned as the cell's set-up does it, under
+    ``.chip_smoke/cell``, removed after): the engine's trimmed classes
+    against the same classes as padded triples, equal in both flags for
+    the three salts, then in turns cold and chained (128 runs with the
+    benchmark's checksum), each beside the bound of its own bytes.
 
 Phases 3 and 7 also time ``torch.gather`` (the library call computing
 K1's and K6/K7's gather, without the salt and the n mask) in turns with
@@ -266,8 +279,8 @@ Prints the stats records (``{"serve_pruned": ...}``, ``{"raw": ...}``,
 ...}``, ``{"block_serve": ...}``, ``{"ef": ...}``, ``{"native": ...}``,
 ``{"local_chain": ...}``, ``{"check_encoded_data": ...}``,
 ``{"check_index": ...}``, ``{"pair_wise_intersect": ...}``,
-``{"dict_perf_test": ...}``, ``{"scale_test": ...}`` and ``{"entry":
-...}`` lines among them), the
+``{"dict_perf_test": ...}``, ``{"scale_test": ...}``, ``{"entry":
+...}`` and ``{"cell_image": ...}`` lines among them), the
 dry run's summary line, the card line, one ``{"kernels": [...]}`` line
 (K1-K7, the fused class launch, X1's two entries, X2, X3 and X4)
 and, last,
@@ -375,6 +388,7 @@ LADDER_TURN_RUNS = 500  # chained runs a turn, X1 beside the torch-op chain
 ZOO_TURN_RUNS = 200
 IN_FUSED = "_in_fused"  # counts key: fused launches that ran a class body
 WALKED = "K123_walked"  # counts key: fused launches whose blocks walked
+TRIMMED = "K123_trimmed"  # counts key: fused launches of trimmed classes
 # the ablation's v_gather32 is K1 alone; its v_ship runs the fused launch
 ABLATE_KERNELS = ("K1_gather32", "K6_onehot_block", "K7_onehot_group")
 # Published H100 device-memory rates (NVIDIA data sheets), by card name.
@@ -526,12 +540,30 @@ def edge_batch(device, rows=67, seed=7):
 
 
 def fused_args(engine):
-    """(n0, cls16, cls32) of ``engine``'s classes as decode_classes
-    takes them; a class the engine has no rows of is None."""
-    c0, c16, c32 = engine._classes
-    return (c0.n if c0.rows else None,
-            (c16.vidx, c16.tab, c16.n) if c16.rows else None,
-            (c32.vidx, c32.tab, c32.n) if c32.rows else None)
+    """(n0, cls16, cls32) of ``engine``'s classes as its runs pass them
+    to decode_classes (the u16 and i32 classes trimmed); a class the
+    engine has no rows of is None."""
+    return engine.launch_args()
+
+
+def fused_padded_args(engine):
+    """The same classes as padded (vidx, tab, n) triples, made on the
+    device from the trimmed form: what the fused launch read before it
+    took classes trimmed."""
+    n0 = engine.launch_args()[0]
+    return (n0, engine.padded(16), engine.padded(32))
+
+
+def zero_region(cls):
+    """A padded (vidx, tab, n) triple with each row's first 16 table
+    entries set to 0, as the planner leaves them, so that its trimmed
+    form leaves them out (skip 16)."""
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    v, t, n = cls
+    t = t.clone()
+    t[:, : dl.ZERO_ENTRIES * t.shape[1] // dl.TABLE_CLS] = 0
+    return v, t, n
 
 
 def fused_edge_cases(device):
@@ -539,14 +571,18 @@ def fused_edge_cases(device):
     of 67 rows each (no multiple of a block's 4 rows, so each class's
     last block is ragged and the next class starts a new block), the
     same with one class empty or absent, one class alone, and classes
-    of 5, 3 and 1 rows."""
+    of 5, 3 and 1 rows; then each of them with the u16 and i32 classes
+    trimmed (``trim_class``: random tables, so skip 0), and the 67-row
+    classes with a zero region, trimmed (skip 16) and padded."""
+    from dint_tpu_torch.kernels import decode_local as dl
+
     v, t16, t32, n = edge_batch(device)
     c16, c32 = (v, t16, n), (v, t32, n)
 
     def head(cls, k):
         return tuple(t[:k] for t in cls)
 
-    return [
+    cases = [
         ("edge 67/67/67", (n, c16, c32)),
         ("edge no zero class", (None, c16, c32)),
         ("edge empty u16 class", (n, head(c16, 0), c32)),
@@ -554,6 +590,85 @@ def fused_edge_cases(device):
         ("edge i32 alone", (None, None, c32)),
         ("edge zero alone", (n, None, None)),
         ("edge 5/3/1 rows", (n[:5], head(c16, 3), head(c32, 1))),
+    ]
+
+    def trim(cls):
+        return None if cls is None else dl.trim_class(*cls)
+
+    cases += [(f"{label}, trimmed", (n0, trim(a), trim(b)))
+              for label, (n0, a, b) in cases if a is not None or b is not None]
+    z16, z32 = zero_region(c16), zero_region(c32)
+    cases += [("edge 67/67/67 zero region", (n, z16, z32)),
+              ("edge 67/67/67 zero region, trimmed",
+               (n, dl.trim_class(*z16), dl.trim_class(*z32)))]
+    return cases
+
+
+def fused_refused_cases(device):
+    """[(label, (n0, cls16, cls32))] that decode_classes refuses with a
+    ValueError naming the class, on both devices and before any launch:
+    a padded triple whose n is longer or shorter than its vidx and tab,
+    and trimmed classes whose n, start table and data disagree in rows
+    or bytes."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    v, t16, t32, n = edge_batch(device, rows=9)
+    n[:] = (torch.tensor([0, 256, 17, 1, 255, 16, 100, 3, 40],
+                         dtype=torch.int32) * dl.N_OUT // 256).to(device)
+    one = torch.ones(1, dtype=torch.int32, device=device)
+    z16 = dl.trim_class(*zero_region((v, t16, n)))
+    z32 = dl.trim_class(v, t32, n)
+
+    def bad(cls, **kw):
+        return cls._replace(**kw)
+
+    def starts_with(cls, row, col, delta):
+        st = cls.starts.clone()
+        st[row:, col] += delta
+        return bad(cls, starts=st)
+
+    def lane_past_table(cls):
+        # a row's first valid lane reads an entry past the row's table
+        st = cls.starts.cpu()
+        r = int(torch.nonzero((cls.n.cpu() > 0)
+                              & (st[1:, 1] - st[:-1, 1] < 30))[0])
+        vv = cls.vidx.clone()
+        vv[16 * int(st[r, 0])] = 255
+        return bad(cls, vidx=vv)
+
+    return [
+        ("a padded u16 n longer than its vidx", (None, (v, t16, torch.cat(
+            [n, one])), None)),
+        ("a padded i32 n shorter than its vidx", (None, None,
+                                                  (v, t32, n[:-1]))),
+        ("a trimmed u16 n of fewer rows than its start table",
+         (None, bad(z16, n=z16.n[:-1]), None)),
+        ("a trimmed i32 n of more rows than its start table",
+         (None, None, bad(z32, n=torch.cat([z32.n, one])))),
+        ("a trimmed u16 vidx short of its start table",
+         (None, bad(z16, vidx=z16.vidx[:-16]), None)),
+        ("a trimmed i32 table short of its start table",
+         (None, None, bad(z32, tab=z32.tab[:-4]))),
+        ("a trimmed u16 vidx of a partial 16-byte word",
+         (None, bad(z16, vidx=z16.vidx[:-1]), None)),
+        ("a trimmed u16 row whose vidx range is short of its n",
+         (None, bad(z16, n=z16.n + (z16.n > 0).to(torch.int32) * 16),
+          None)),
+        ("a trimmed i32 start table that falls",
+         (None, None, starts_with(z32, 3, 0, -2))),
+        ("a trimmed u16 start table below 0",
+         (None, starts_with(z16, 0, 1, -1), None)),
+        ("a trimmed u16 row of more vidx lanes than n_out",
+         (None, bad(starts_with(z16, 2, 0, dl.N_OUT // 16), vidx=torch.cat(
+             [z16.vidx, z16.vidx.new_zeros(dl.N_OUT)])), None)),
+        ("a trimmed i32 row's table past the row's table",
+         (None, None, bad(starts_with(z32, 1, 1, 80), tab=torch.cat(
+             [z32.tab, z32.tab.new_zeros(320)])))),
+        ("a trimmed u16 lane that reads past its row's table",
+         (None, lane_past_table(z16), None)),
+        ("a trimmed i32 class of skip 8", (None, None, bad(z32, skip=8))),
     ]
 
 
@@ -580,6 +695,32 @@ def check_fused(cases) -> int:
                          f"version on {label}, salt {s:#x}, exact={exact} "
                          f"(max abs err {diff})")
     return worst
+
+
+def check_fused_refusals(device) -> int:
+    """Every case of ``fused_refused_cases`` refused by decode_classes
+    with a ValueError naming its class, and no launch; returns the
+    count."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    salt = torch.tensor([5], dtype=torch.int64, device=device)
+    cases = fused_refused_cases(device)
+    for label, args in cases:
+        which = "u16" if args[1] is not None else "i32"
+        before = dl.decode_classes.launches
+        try:
+            dl.decode_classes(*args, salt)
+        except ValueError as e:
+            if f"{which} class" not in str(e):
+                fail(f"decode_classes refused {label} without naming its "
+                     f"class: {e}")
+        else:
+            fail(f"decode_classes took {label}")
+        if dl.decode_classes.launches != before:
+            fail(f"decode_classes launched on {label}")
+    return len(cases)
 
 
 K3_ROWS = (1, 5, 67, 1000, 4097)  # no multiple of a K3 block at any n_out
@@ -639,7 +780,7 @@ def class_cases(engine, cases=None):
         if mode not in cls:
             continue
         c = cls[mode]
-        args = [c.vidx, c.tab, c.n] if mode else [c.n]
+        args = list(engine.padded(mode)) if mode else [c.n]
         cases.setdefault(name, []).append(
             (lambda s, a=args, k=kern: k(*a, s),
              lambda s, a=args, p=plain: p(*a, s), c.rows))
@@ -749,12 +890,115 @@ def time_in_turns(fns: dict, iters: int, flush, rounds: int = 2,
     return {name: sum(v) / len(v) for name, v in got.items()}
 
 
+HEADS = ((37, 301, 19), (3, 40, 2))  # serving-sized launches: rows a class
+CHAIN_RUNS = 128  # chained runs a timed call of fused_forms, as the benchmark's
+
+
+def fused_bytes(engine, padded=None) -> int:
+    """Bytes one fused launch over ``engine``'s classes moves: its class
+    tensors read once (the trimmed ones the engine keeps, or the
+    ``padded`` triples), the output written once, the salt."""
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    out = engine.rows * dl.N_OUT * 4 + 8
+    if padded is None:
+        return out + engine.card_bytes()
+    n0 = padded[0]
+    return out + (0 if n0 is None else n0.numel() * 4) + sum(
+        t.numel() * t.element_size() for c in padded[1:] if c is not None
+        for t in c)
+
+
+def heads_of(args, rows, padded: bool):
+    """The first ``rows`` = (R0, R16, R32) rows of each class of fused
+    launch args (trimmed classes through ``TrimmedClass.head``)."""
+    n0, c16, c32 = args
+    r0, r16, r32 = rows
+
+    def head(c, k):
+        if c is None:
+            return None
+        return tuple(t[:k] for t in c) if padded else c.head(k)
+
+    return (None if n0 is None else n0[:r0], head(c16, r16), head(c32, r32))
+
+
+def chained_us(engine, args, runs: int = CHAIN_RUNS, calls: int = 5,
+               check: bool = False) -> float:
+    """Median µs a run of ``calls`` timed calls of ``runs`` chained runs
+    as the benchmark's window makes them: a fused launch over ``args``,
+    then the checksum of the first 128 rows of each class, the next salt
+    from it, on the card."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    rows = torch.cat([torch.arange(c.base, c.base + min(c.rows, 128))
+                      for c in engine._classes if c.rows]).to(engine.device)
+    salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device=engine.device)
+
+    def call(s):
+        for _ in range(runs):
+            buf = dl.decode_classes(*args, s, check=check)
+            acc = buf.index_select(0, rows).sum(dtype=torch.int32)
+            del buf
+            s = (torch.add(s, acc, alpha=4) + 1) & MASK
+        return s
+
+    salt = call(salt)
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(calls):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        salt = call(salt)
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) * 1e3 / runs)
+    return sorted(per)[len(per) // 2]
+
+
+def fused_forms(engine, flush, rounds: int = 3) -> dict:
+    """The fused launch over ``engine``'s trimmed classes and over the
+    same classes as padded triples (the reads of the launch before it
+    took trimmed classes), in turns: chained as the benchmark runs it
+    (µs a run), and on the serving-sized heads of ``HEADS`` (one small
+    tile a block), cold; each head's two forms equal first."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    forms = {"trimmed": fused_args(engine),
+             "padded": fused_padded_args(engine)}
+    got = {"chained_us": {k: [] for k in forms}, "heads_us": {}}
+    for _ in range(rounds):
+        for k, a in forms.items():
+            got["chained_us"][k].append(chained_us(engine, a))
+    salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device=engine.device)
+    for rows in HEADS:
+        h = {k: heads_of(a, rows, k == "padded") for k, a in forms.items()}
+        if not torch.equal(dl.decode_classes(*h["trimmed"], salt),
+                           dl.decode_classes(*h["padded"], salt)):
+            fail(f"the {rows} head decodes differently trimmed and padded")
+        t = time_in_turns({k: (lambda a=a: dl.decode_classes(
+            *a, salt, check=False)) for k, a in h.items()}, 50, flush,
+            rounds=rounds)
+        got["heads_us"]["/".join(map(str, rows))] = {
+            k: v * 1e3 for k, v in t.items()}
+    got["chained_us"] = {k: sorted(v)[len(v) // 2]
+                         for k, v in got["chained_us"].items()}
+    return got
+
+
 def time_kernels(engine, errs, card_name):
     """One kernels-line entry per class kernel and one for the fused
     launch, at the bench image's shapes, timed in turns in one go: K1
-    alone, an empty grid of K1's shape, the fused launch, the three
+    alone, an empty grid of K1's shape, the fused launch (the engine's
+    trimmed classes, and the same classes as padded triples), the three
     stand-alone launches back to back, K2 and K3 alone, the zero class
-    alone in the fused launch."""
+    alone in the fused launch; then the fused launch's two forms chained
+    and on serving-sized heads (``fused_forms``)."""
     import torch
 
     from dint_tpu_torch.kernels import cuda_ext
@@ -780,6 +1024,7 @@ def time_kernels(engine, errs, card_name):
                        lib.dint_empty_launch(k1_blocks, stream))
 
     args = fused_args(engine)
+    padded = fused_padded_args(engine)
     buf = torch.empty((engine.rows, N_OUT), dtype=torch.int32,
                       device=engine.device)
 
@@ -787,13 +1032,13 @@ def time_kernels(engine, errs, card_name):
     # out[r, j] = tab[r, vidx[r, j]] on the same class tensors (its index
     # must be int64, made here, outside the timing), without K1's salt
     # add and n mask
-    k1 = next(c for c in engine._classes if c.mode == 32)
-    lib_idx = k1.vidx.to(torch.int64)
+    k1_vidx, k1_tab, _ = padded[2]
+    lib_idx = k1_vidx.to(torch.int64)
     # K2's: torch.gather on the int16 view of the u16-packed table (byte
     # index idx is halfword idx of the little-endian words), no salt, no
     # n mask; K3's: fill_ over the same output bytes
-    k2 = next(c for c in engine._classes if c.mode == 16)
-    lib16_tab, lib16_idx = k2.tab.view(torch.int16), k2.vidx.to(torch.int64)
+    k2_vidx, k2_tab, _ = padded[1]
+    lib16_tab, lib16_idx = k2_tab.view(torch.int16), k2_vidx.to(torch.int64)
     lib_fill = torch.empty((cases["K3_zero"][2], N_OUT), dtype=torch.int32,
                            device=engine.device)
 
@@ -803,20 +1048,22 @@ def time_kernels(engine, errs, card_name):
             if c.mode == 0:
                 dl.zero(c.n, salt, N_OUT, out=o)
             elif c.mode == 16:
-                dl.gather16(c.vidx, c.tab, c.n, salt, out=o)
+                dl.gather16(*padded[1], salt, out=o)
             else:
-                dl.gather32(c.vidx, c.tab, c.n, salt, out=o)
+                dl.gather32(*padded[2], salt, out=o)
 
     # the zero class alone in the fused launch (no u16 or i32 rows)
     zero_args = (args[0], None, None)
     zero_buf = buf[: cases["K3_zero"][2]]
     fns = {"K1_gather32": lambda: cases["K1_gather32"][0](salt),
            "empty": empty,
-           FUSED: lambda: dl.decode_classes(*args, salt, out=buf),
+           FUSED: lambda: dl.decode_classes(*args, salt, out=buf,
+                                            check=False),
+           "fused_padded": lambda: dl.decode_classes(*padded, salt, out=buf),
            "three": three,
            "K2_gather16": lambda: cases["K2_gather16"][0](salt),
            "K3_zero": lambda: cases["K3_zero"][0](salt),
-           "library_gather": lambda: torch.gather(k1.tab, 1, lib_idx),
+           "library_gather": lambda: torch.gather(k1_tab, 1, lib_idx),
            "library_gather16": lambda: torch.gather(lib16_tab, 1, lib16_idx),
            "library_fill": lambda: lib_fill.fill_(0x5A5A5A5A),
            "zero_in_fused": lambda: dl.decode_classes(*zero_args, salt,
@@ -827,11 +1074,9 @@ def time_kernels(engine, errs, card_name):
     plains[FUSED] = lambda: dl.decode_classes_plain(*args, salt)
     plain_ms = {name: time_ms(fn, 5, flush) for name, fn in plains.items()}
     out = []
-    fused_bytes = 0
     for name in DECODE_KERNELS:
         rows = cases[name][2]
         nbytes, ops = kernel_bytes_ops(name, rows, N_OUT)
-        fused_bytes += nbytes - 8  # the salt is read once a launch
         t_bytes, t_ops = nbytes / rate * 1e3, ops / INT32_OPS_PER_S * 1e3
         fn, line = srcs[name]
         out.append({
@@ -867,11 +1112,18 @@ def time_kernels(engine, errs, card_name):
         "max_abs_err": errs[FUSED],
         "ms": ms[FUSED],
         "plain_ms": plain_ms[FUSED],
-        **bound_entry(fused_bytes + 8, sum(
+        # the bound from the trimmed image's bytes: every class tensor
+        # the engine keeps read once, the output written once, the salt
+        **bound_entry(fused_bytes(engine), sum(
             kernel_bytes_ops(n, cases[n][2], N_OUT)[1]
             for n in DECODE_KERNELS) / INT32_OPS_PER_S * 1e3, card_name),
         "library_ms": None,
         "rows": engine.rows,
+        # the same classes as padded triples, in the same turns, and the
+        # bytes they read
+        "padded_ms": ms["fused_padded"],
+        "padded_bytes": fused_bytes(engine, padded),
+        **fused_forms(engine, flush),
         "three_launches_ms": ms["three"],
         # the zero class alone in the fused launch, and its bytes bound
         "zero_class_ms": ms["zero_in_fused"],
@@ -880,6 +1132,13 @@ def time_kernels(engine, errs, card_name):
     for k in out:
         log(f"{k['name']} {k['ms'] * 1e3:.2f} us (bound "
             f"{k['bound_ms'] * 1e3:.2f} us, plain {k['plain_ms'] * 1e3:.1f} us)")
+    f = out[-1]
+    log(f"fused launch trimmed {f['ms'] * 1e3:.2f} us, padded "
+        f"{f['padded_ms'] * 1e3:.2f} us; chained "
+        f"{f['chained_us']['trimmed']:.2f} / {f['chained_us']['padded']:.2f}"
+        f" us a run; heads (trimmed / padded, us): " + ", ".join(
+            f"{h} {v['trimmed']:.2f} / {v['padded']:.2f}"
+            for h, v in f["heads_us"].items()))
     log(f"empty grid of {k1_blocks} blocks {ms['empty'] * 1e3:.2f} us; the "
         f"three class launches back to back {ms['three'] * 1e3:.2f} us; the "
         f"zero class alone in the fused launch "
@@ -1348,6 +1607,92 @@ def drive_main_path(data, base, runs: int, device):
     return recs, counts
 
 
+CELL_CONFIG = os.path.join(REPO, "benchmark", "configs", "gov2s-rect.json")
+
+
+def cell_engine(root: str, seed: int, device="cuda"):
+    """The benchmark cell's image on ``device`` (``CELL_CONFIG``: its
+    collection from ``seed``, encoded and planned as the cell's set-up
+    does it), under ``root``."""
+    from benchmark import collection
+    from dint_tpu_torch.dictionary import builder
+    from dint_tpu_torch.index import stream as stream_mod
+    from dint_tpu_torch.tools import common, decode, encode
+
+    with open(CELL_CONFIG) as f:
+        cfg = json.load(f)
+    os.makedirs(root, exist_ok=True)
+    base = os.path.join(root, "coll")
+    stype = cfg["stream_type"]
+    kind, policy = common.DINT_KINDS[stype]
+    stream = os.path.join(root, f"coll.{stype}.bin")
+    coll = collection.make(cfg["collection"], seed)
+    collection.write(base, coll)
+    encode.encode_collection(stype, base + ".docs", stream, cache_dir=root,
+                             device=device)
+    dict_file = os.path.join(root, builder.dict_cache_name(
+        base + ".docs", kind, policy or "pack"))
+    arena, meta = stream_mod.load_stream(stream)
+    view = decode.load_dictionary(stype, dict_file).decode_view()
+    return decode.StreamDecoder(arena, meta, view, False, "local", None,
+                                device).engine
+
+
+def cell_phase(seed: int, card_name: str) -> dict:
+    """Phase 32: the fused launch on the benchmark cell's image (90.9M
+    postings), its trimmed classes against the same classes as padded
+    triples (the reads of the launch before it took trimmed classes):
+    equal in both flags, then in turns cold (behind an L2-clearing
+    read) and chained as the benchmark runs it, each beside the bound
+    of its own bytes."""
+    import torch
+
+    from dint_tpu_torch.kernels import decode_local as dl
+
+    root = os.path.join(CACHE, "cell")
+    eng = cell_engine(root, seed)
+    forms = {"trimmed": fused_args(eng), "padded": fused_padded_args(eng)}
+    for s in SALTS:
+        st = torch.tensor([s], dtype=torch.int64, device="cuda")
+        for exact in (False, True):
+            a, b = (dl.decode_classes(*forms[k], st, exact, check=False)
+                    for k in forms)
+            if not torch.equal(a, b):
+                fail(f"the cell's image decodes differently trimmed and "
+                     f"padded, salt {s:#x}, exact={exact}")
+    flush = torch.zeros(24 << 20, dtype=torch.int32, device="cuda")
+    salt = torch.tensor([0x9E3779B9], dtype=torch.int64, device="cuda")
+    buf = torch.empty((eng.rows, dl.N_OUT), dtype=torch.int32, device="cuda")
+    cold = time_in_turns({k: (lambda a=a: dl.decode_classes(
+        *a, salt, out=buf, check=False)) for k, a in forms.items()}, 40,
+        flush, rounds=3)
+    chained = {k: [] for k in forms}
+    for _ in range(3):
+        for k, a in forms.items():
+            chained[k].append(chained_us(eng, a))
+    rate = hbm_rate(card_name)
+    rec = {"postings": eng.total_ints(), "rows": eng.rows,
+           "card_bytes": eng.card_bytes(),
+           "padded_card_bytes": fused_bytes(eng, forms["padded"])
+           - eng.rows * dl.N_OUT * 4 - 8}
+    for k in forms:
+        nbytes = fused_bytes(eng, None if k == "trimmed" else forms[k])
+        rec[k] = {"bytes": nbytes, "bound_us": nbytes / rate * 1e6,
+                  "cold_us": cold[k] * 1e3,
+                  "chained_us": sorted(chained[k])[1]}
+    log(f"the cell's image: trimmed {rec['trimmed']['cold_us']:.2f} us cold "
+        f"(bound {rec['trimmed']['bound_us']:.2f}), "
+        f"{rec['trimmed']['chained_us']:.2f} chained; padded "
+        f"{rec['padded']['cold_us']:.2f} (bound "
+        f"{rec['padded']['bound_us']:.2f}), "
+        f"{rec['padded']['chained_us']:.2f}; card image "
+        f"{rec['card_bytes']} B against {rec['padded_card_bytes']} B")
+    del eng, forms, buf, flush
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 def chain_against_twins(engine, runs=3) -> int:
     """decode_chain's final salt on the card equals the twins' on the
     host for the same image; return it."""
@@ -1705,13 +2050,15 @@ def launch_counts():
     """{wrapper: launches of its kernel}; under ``<K1-K3> + IN_FUSED``,
     the fused launches whose grid ran that class's body, and under
     ``WALKED`` those of more tiles than the card holds blocks at once
-    (``decode_classes.walked``)."""
+    (``decode_classes.walked``), under ``TRIMMED`` those that read a
+    class trimmed (``decode_classes.trimmed``)."""
     out = {}
     for m in kernel_modules():
         out.update(m.launch_counts())
     dl = kernel_modules()[0]
     out.update({k + IN_FUSED: v for k, v in dl.fused_body_counts().items()})
     out[WALKED] = dl.decode_classes.walked
+    out[TRIMMED] = dl.decode_classes.trimmed
     return out
 
 
@@ -4410,7 +4757,9 @@ def entry_phase(device="cuda"):
     if out.device.type == "cuda":
         torch.cuda.synchronize()
     counts = launch_counts()
-    cpu = lambda x: (None if x is None else tuple(t.cpu() for t in x)
+    cpu = lambda x: (None if x is None else x.to("cpu")
+                     if isinstance(x, dl.TrimmedClass)
+                     else tuple(t.cpu() for t in x)
                      if isinstance(x, tuple) else x.cpu())
     if out.device.type == "cuda":
         if counts[FUSED] != 1:
@@ -4479,9 +4828,13 @@ def main(argv=None) -> int:
         f"{img.device_bytes()} B")
     errs = check_kernels(kernel_cases(dec.engine))
     errs["K3_zero"] = max(errs["K3_zero"], check_k3_widths())
-    errs[FUSED] = check_fused([("bench image", fused_args(dec.engine))]
+    errs[FUSED] = check_fused([("bench image", fused_args(dec.engine)),
+                               ("bench image, padded",
+                                fused_padded_args(dec.engine))]
                               + fused_edge_cases("cuda"))
-    log(f"kernels equal their plain versions on the card: {errs}")
+    log(f"kernels equal their plain versions on the card: {errs}; the "
+        f"fused launch refused {check_fused_refusals('cuda')} classes at "
+        f"odds")
     kernels = time_kernels(dec.engine, errs, kind)
     salt = chain_against_twins(dec.engine)
     log(f"chain salt on the card equals the host twins': {salt:#x}")
@@ -4709,6 +5062,13 @@ def main(argv=None) -> int:
     print(json.dumps({"entry": {**entry_rec, "device": kind}}), flush=True)
     mark(t_start, "phase 31")
 
+    # 32. the fused launch on the benchmark cell's image, trimmed against
+    # padded
+    cell = cell_phase(args.seed, kind)
+    print(json.dumps({"cell_image": {**cell, "nvidia_smi": smi}}),
+          flush=True)
+    mark(t_start, "phase 32")
+
     def by_path(key):
         return {"decode": sum(c[key] for t, c in counts.items()
                               if t in TYPES),
@@ -4726,6 +5086,8 @@ def main(argv=None) -> int:
         k["launches"] = sum(k["launches_by_path"].values())
         if k["name"] == FUSED:
             k["walked_by_path"] = by_path(WALKED)
+            k["trimmed_by_path"] = by_path(TRIMMED)
+            k["cell_image"] = cell
         else:
             k["standalone_launches"] = k["launches"]
             k["launches_in_fused_by_path"] = by_path(k["name"] + IN_FUSED)

@@ -48,15 +48,15 @@ def entry(device="cuda"):
     salt = torch.zeros(1, dtype=torch.int64, device=dev)
     if dev.type == "cuda":
         eng = dl.LocalDecodeEngine(plan, device=dev)
-        c0, c16, c32 = eng._classes
 
         def fn(n0, cls16, cls32, salt):
-            # engine rows: class-major (zero, u16, i32), each padded
-            return dl.decode_classes(n0, cls16, cls32, salt, exact=True)
+            # engine rows: class-major (zero, u16, i32), each padded; the
+            # u16 and i32 classes trimmed, as the engine built and checked
+            # them
+            return dl.decode_classes(n0, cls16, cls32, salt, exact=True,
+                                     check=False)
 
-        return fn, (c0.n if c0.rows else None,
-                    (c16.vidx, c16.tab, c16.n) if c16.rows else None,
-                    (c32.vidx, c32.tab, c32.n) if c32.rows else None, salt)
+        return fn, (*eng.launch_args(), salt)
 
     def fn(vidx, table, n, salt):
         return dl.decode_gather_rows(vidx, table, n, salt)

@@ -41,11 +41,11 @@
 //    cost K2 some 8% on the bench image.
 //
 // The fused launch is bound by its own bytes, which are more than a decode's
-// least bytes: it reads the gather image (vidx, tables, n: 2.35 B an int)
-// and writes 4 B a lane, padding lanes too.  On the benchmark's
+// least bytes: it reads the gather image (vidx, tables, n: 2.35 B an int
+// padded) and writes 4 B a lane, padding lanes too.  On the benchmark's
 // 90,855,447-posting Gov2-shaped image (403,456 rows: 264,192 u16, 40,960
-// i32, 98,304 zero) a launch reads 256.9 MB and writes 413.1 MB: 670.1 MB,
-// 200.0 us at 3.35 TB/s.  On an NVIDIA H100 80GB HBM3 (700 W) torch's copy_
+// i32, 98,304 zero) a launch read 256.9 MB and wrote 413.1 MB: 670.1 MB,
+// 200.0 us at 3.35 TB/s (trimmed classes, below, read 207.2 MB).  On an NVIDIA H100 80GB HBM3 (700 W) torch's copy_
 // moves as many bytes in 222 us (90%), fill_ writes 413 MB at 96%.  The
 // launch's first design gave each block one tile of 1024 lanes and one trip
 // to memory (loads, wait, gather and store, exit): 82,432 blocks in some 78
@@ -89,6 +89,31 @@
 // slower on middling launches), evict-first loads, zero tiles spread among
 // the gather tiles, the last warp to leave a stage refilling it in place
 // of a block barrier (each as fast or slower).
+//
+// The launch reads the engines' u16 and i32 classes trimmed (see Classes):
+// of a row only the vidx lanes below n and the table entries its valid
+// lanes read past the planner's zero region, which is 0 and which a lane
+// below `skip` reads as 0 without a load.  A padded row copies 256 lanes
+// and 256 entries whatever it uses.  On the benchmark's image the reads
+// fall from 256.9 to 207.2 MB a run (vidx 78.1 -> 68.0, tables 177.2 ->
+// 135.1, row starts 2.4 MB added), 620.3 MB in all with the 413.1 MB
+// written.  A trimmed tile's bytes are one range of each class tensor, so
+// the walk still fills a stage with one bulk copy of each part; the range
+// needs the tile's first row's starts, a read the copies depend on, which
+// the thread that issues them makes a stage before it issues them (at a
+// block's start, before the mbarriers are set up).  Padded classes (the
+// stand-alone entry's triples) take the same walk at the fixed stride.  In
+// the benchmark's chained runs on an NVIDIA H100 80GB HBM3 (700 W) the
+// launch takes 217.0 us a run against 228.8 padded (2.86 TB/s of its own
+// bytes).  Where a launch's tiles fit the grid at once (a serving call: one
+// 4-row tile a block), the dependent read is not hidden and a trimmed
+// launch takes some 0.3-0.5 us more than a padded one (7.0-7.1 against
+// 6.7 us); passing the tiles' starts as a kernel parameter instead cost as
+// much in launch latency as it saved.  On the 6,000-list bench image,
+// whose rows are nearly full, trimming saves 4% of the bytes and the
+// launch is 2-4% slower (42.7 against 41.0 us).  __launch_bounds__ asks for
+// two blocks an SM, which the shared memory allows anyway: it let the
+// compiler keep more in registers, 3% faster on trimmed classes.
 //
 // Launch shape of the stand-alone gather bodies: one block of 256 threads
 // covers ROWS_PER_BLOCK = 1024 / n_out rows (4 at n_out = 256); thread t of a row
@@ -282,15 +307,26 @@ zero_kernel(const int32_t* __restrict__ n, const long long* __restrict__ salt_p,
 }
 
 // The three classes of one engine run.  Output rows are class-major in the
-// engine's order (zero, u16, i32); a class may be empty.
+// engine's order (zero, u16, i32); a class may be empty.  A gather class
+// comes padded (starts null: row r's vidx at r * n_out, its table at
+// r * words) or trimmed: row r keeps vidx lanes [0, n_r) and table entries
+// [skip, used_r), used_r one past the highest index its valid lanes read,
+// each part rounded up to 16 bytes, the rows end to end; starts[r] holds
+// the first 16-byte word of row r's vidx (.x) and table (.y), and
+// starts[rows] the ends.  `skip` is 16 where every row's first 16 entries
+// (the planner's zero region) are 0, which a trimmed row then leaves out
+// and a lane whose index is below it reads as 0, and 0 otherwise.
 struct Classes {
   const int32_t* n0;
   const uint8_t* vidx16;
   const uint32_t* tab16;
   const int32_t* n16;
+  const int2* starts16;
   const uint8_t* vidx32;
   const uint32_t* tab32;
   const int32_t* n32;
+  const int2* starts32;
+  int skip16, skip32;
   int64_t rows0, rows16, rows32;
 };
 
@@ -310,16 +346,20 @@ static_assert(WALK_ROWS % 4 == 0, "a whole tile's n must be 16-byte words");
 static_assert(8 * WALK_STAGES <= WALK_BAR_BYTES, "mbarriers outgrow their room");
 
 // One stage of the ring holds a tile's vidx (WALK_ROWS * n_out bytes), its
-// table (room for the i32 class's, the wider) and its n, each part 16-byte
-// aligned.
+// table (room for the i32 class's, the wider), its n and a trimmed tile's
+// row starts, each part 16-byte aligned.  A trimmed tile's rows take no
+// more: none keeps more than n_out vidx lanes or TABLE_CLS table words.
 __host__ __device__ constexpr int walk_tab_off(int n_out) {
   return WALK_ROWS * n_out;
 }
 __host__ __device__ constexpr int walk_n_off(int n_out) {
   return WALK_ROWS * (n_out + TABLE_CLS * 4);
 }
-__host__ __device__ constexpr int walk_stage_bytes(int n_out) {
+__host__ __device__ constexpr int walk_starts_off(int n_out) {
   return WALK_ROWS * (n_out + TABLE_CLS * 4 + 4);
+}
+__host__ __device__ constexpr int walk_stage_bytes(int n_out) {
+  return WALK_ROWS * (n_out + TABLE_CLS * 4 + 12);
 }
 __host__ __device__ constexpr int walk_smem_bytes(int n_out) {
   return WALK_BAR_BYTES + WALK_STAGES * walk_stage_bytes(n_out);
@@ -421,42 +461,91 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// Where a trimmed tile's bytes lie: the starts of its first row (lo) and
+// those past its last row (hi), read by the one thread that issues its
+// copies, a stage before it issues them; zeros for any other tile.
+struct Span {
+  int2 lo, hi;
+};
+
+__device__ __forceinline__ Span walk_span(const Classes& c, const Tile& k) {
+  Span sp = {make_int2(0, 0), make_int2(0, 0)};
+  const int2* st = k.mode == 16 ? c.starts16 : k.mode == 32 ? c.starts32
+                                                            : nullptr;
+  if (st) {
+    sp.lo = __ldg(st + k.row0);
+    sp.hi = __ldg(st + k.row0 + k.rows);
+  }
+  return sp;
+}
+
 // Start tile t's loads into the stage at `stage` (one thread): a gather
-// tile's vidx and table rows, and every tile's n where the tile is whole and
-// the body reads it (the exact zero output reads none).  A class's short
-// last tile's n need not be whole 16-byte words: its threads read it
-// themselves.  Nothing past a class's tensors is read.
+// tile's vidx and table bytes (a padded tile's whole rows, a trimmed tile's
+// range `sp` of each, none where its rows keep none), and every tile's n,
+// and a trimmed tile's row starts, where the tile is whole and the body
+// reads them (the exact zero output reads none).  A class's short last
+// tile's n and starts need not be whole 16-byte words: its threads read
+// them themselves.  Nothing past a class's tensors is read.
 __device__ __forceinline__ void walk_issue(const Classes& c, const Walk& w,
-                                           int64_t t, int n_out, bool exact,
+                                           const Tile& k, const Span& sp,
+                                           int n_out, bool exact,
                                            uint32_t stage, uint32_t bar) {
-  const Tile k = walk_tile(c, w, t);
   const int32_t* n = k.mode == 16 ? c.n16 : k.mode == 32 ? c.n32 : c.n0;
-  const uint32_t nb =
-      k.rows == w.rows && !(k.mode == 0 && exact) ? w.rows * 4 : 0;
+  const bool whole = k.rows == w.rows;
+  const uint32_t nb = whole && !(k.mode == 0 && exact) ? w.rows * 4 : 0;
   if (k.mode == 0) {
     bar_expect(bar, nb);
   } else {
     const int words = k.mode == 16 ? TABLE_CLS / 2 : TABLE_CLS;
     const uint8_t* vidx = k.mode == 16 ? c.vidx16 : c.vidx32;
-    const uint32_t* tab = k.mode == 16 ? c.tab16 : c.tab32;
-    const uint32_t vb = k.rows * n_out, tb = k.rows * words * 4;
-    bar_expect(bar, vb + tb + nb);
-    bulk_load(stage, vidx + k.row0 * n_out, vb, bar);
-    bulk_load(stage + walk_tab_off(n_out), tab + k.row0 * words, tb, bar);
+    const uint8_t* tab = reinterpret_cast<const uint8_t*>(
+        k.mode == 16 ? c.tab16 : c.tab32);
+    const int2* st = k.mode == 16 ? c.starts16 : c.starts32;
+    uint32_t vb, tb, sb = 0;
+    if (st) {
+      vidx += (int64_t)sp.lo.x * 16, tab += (int64_t)sp.lo.y * 16;
+      vb = (uint32_t)(sp.hi.x - sp.lo.x) * 16;
+      tb = (uint32_t)(sp.hi.y - sp.lo.y) * 16;
+      if (whole) sb = w.rows * 8;
+    } else {
+      vidx += k.row0 * n_out, tab += k.row0 * words * 4;
+      vb = k.rows * n_out, tb = k.rows * words * 4;
+    }
+    bar_expect(bar, vb + tb + nb + sb);
+    if (vb) bulk_load(stage, vidx, vb, bar);
+    if (tb) bulk_load(stage + walk_tab_off(n_out), tab, tb, bar);
+    if (sb) bulk_load(stage + walk_starts_off(n_out), st + k.row0, sb, bar);
   }
   if (nb) bulk_load(stage + walk_n_off(n_out), n + k.row0, nb, bar);
 }
 
-// A gather tile (K2's body at MODE 16, K1's at MODE 32) from its stage `s`,
-// whose n the stage holds where the tile is `whole` (the walk's rows):
-// int4 q of the tile (row q / (n_out / 4)) goes to thread q % WALK_THREADS, so
-// each store is 16 bytes and coalesced across the warp.  The stores stream
-// (st.global.cs, evict first): nothing in the launch reads the output again.
+// Table entry `idx` of a row whose table the stage holds from entry `skip`
+// on: 0 below it (the zero region, which a trimmed row leaves out), plus
+// `add` at MODE 16 as entry() adds it.
 template <int MODE>
+__device__ __forceinline__ int entry_from(const uint32_t* t, uint32_t idx,
+                                          int skip, uint32_t salt,
+                                          uint32_t add) {
+  if ((int)idx < skip) return MODE == 32 ? 0 : (int)add;
+  return entry<MODE>(t, idx - skip, salt, add);
+}
+
+// A gather tile (K2's body at MODE 16, K1's at MODE 32) from its stage `s`,
+// whose n (and a trimmed tile's starts) the stage holds where the tile is
+// `whole` (the walk's rows): int4 q of the tile (row q / (n_out / 4)) goes
+// to thread q % WALK_THREADS, so each store is 16 bytes and coalesced
+// across the warp.  Row lr's vidx and table lie at lr * n_out and
+// lr * WORDS in the stage for a padded tile, at its starts less the
+// tile's first row's for a trimmed one; a lane at or past n reads
+// neither.  The stores stream (st.global.cs, evict first): nothing in the
+// launch reads the output again.
+template <int MODE, bool TRIM>
 __device__ __forceinline__ void walk_gather(const uint8_t* s, const Tile& k,
                                             bool whole,
                                             const int32_t* __restrict__ n,
-                                            uint32_t salt, uint32_t add,
+                                            const int2* __restrict__ starts,
+                                            int skip, uint32_t salt,
+                                            uint32_t add,
                                             int32_t* __restrict__ out,
                                             int n_out) {
   constexpr int WORDS = MODE == 32 ? TABLE_CLS : TABLE_CLS / 2;
@@ -464,18 +553,32 @@ __device__ __forceinline__ void walk_gather(const uint8_t* s, const Tile& k,
   const uint32_t* tab_s =
       reinterpret_cast<const uint32_t*>(s + walk_tab_off(n_out));
   const int32_t* n_s = reinterpret_cast<const int32_t*>(s + walk_n_off(n_out));
+  const int2* st_s = reinterpret_cast<const int2*>(s + walk_starts_off(n_out));
+  int2 first = make_int2(0, 0);
+  if (TRIM) first = whole ? st_s[0] : __ldg(starts + k.row0);
   int4* o = reinterpret_cast<int4*>(out + k.out0 * n_out);
   for (int q = threadIdx.x; q < k.rows << row_shift; q += WALK_THREADS) {
     const int lr = q >> row_shift;
     const int j = (q & ((1 << row_shift) - 1)) * 4;
-    const uchar4 ix = reinterpret_cast<const uchar4*>(s)[q];
     const int nr = whole ? n_s[lr] : __ldg(n + k.row0 + lr);
-    const uint32_t* t = tab_s + lr * WORDS;
     int4 v;
-    v.x = j + 0 < nr ? entry<MODE>(t, ix.x, salt, add) : 0;
-    v.y = j + 1 < nr ? entry<MODE>(t, ix.y, salt, add) : 0;
-    v.z = j + 2 < nr ? entry<MODE>(t, ix.z, salt, add) : 0;
-    v.w = j + 3 < nr ? entry<MODE>(t, ix.w, salt, add) : 0;
+    if (TRIM) {
+      const int2 a = whole ? st_s[lr] : __ldg(starts + k.row0 + lr);
+      const uchar4 ix =
+          *reinterpret_cast<const uchar4*>(s + (a.x - first.x) * 16 + j);
+      const uint32_t* t = tab_s + (a.y - first.y) * 4;
+      v.x = j + 0 < nr ? entry_from<MODE>(t, ix.x, skip, salt, add) : 0;
+      v.y = j + 1 < nr ? entry_from<MODE>(t, ix.y, skip, salt, add) : 0;
+      v.z = j + 2 < nr ? entry_from<MODE>(t, ix.z, skip, salt, add) : 0;
+      v.w = j + 3 < nr ? entry_from<MODE>(t, ix.w, skip, salt, add) : 0;
+    } else {
+      const uchar4 ix = reinterpret_cast<const uchar4*>(s)[q];
+      const uint32_t* t = tab_s + lr * WORDS;
+      v.x = j + 0 < nr ? entry<MODE>(t, ix.x, salt, add) : 0;
+      v.y = j + 1 < nr ? entry<MODE>(t, ix.y, salt, add) : 0;
+      v.z = j + 2 < nr ? entry<MODE>(t, ix.z, salt, add) : 0;
+      v.w = j + 3 < nr ? entry<MODE>(t, ix.w, salt, add) : 0;
+    }
     __stcs(o + q, v);
   }
 }
@@ -507,7 +610,7 @@ __device__ __forceinline__ void walk_zero(const uint8_t* s, const Tile& k,
 // soon as every thread has read it, so that the next tiles' loads are in
 // flight while the block gathers and stores this one.  With no more tiles
 // than the grid holds, each block takes one tile.
-__global__ void __launch_bounds__(WALK_THREADS)
+__global__ void __launch_bounds__(WALK_THREADS, 2)
 decode_classes_kernel(Classes c, Walk w, const long long* __restrict__ salt_p,
                       int32_t* __restrict__ out, int n_out, int exact) {
   extern __shared__ __align__(128) uint8_t walk_s[];
@@ -517,11 +620,21 @@ decode_classes_kernel(Classes c, Walk w, const long long* __restrict__ salt_p,
   const int stage_bytes = walk_stage_bytes(n_out);
   const bool ex = exact != 0;
   if (threadIdx.x == 0) {
+    // the first tiles' row starts are asked for before the mbarriers are
+    // set up, so that the two overlap
+    Tile k[WALK_STAGES];
+    Span sp[WALK_STAGES];
+    int64_t t = blockIdx.x;
+    for (int s = 0; s < WALK_STAGES && t < tiles; ++s, t += gridDim.x) {
+      k[s] = walk_tile(c, w, t);
+      sp[s] = walk_span(c, k[s]);
+    }
     for (int s = 0; s < WALK_STAGES; ++s) bar_init(bars + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    int64_t t = blockIdx.x;
+    t = blockIdx.x;
     for (int s = 0; s < WALK_STAGES && t < tiles; ++s, t += gridDim.x)
-      walk_issue(c, w, t, n_out, ex, stages + s * stage_bytes, bars + 8 * s);
+      walk_issue(c, w, k[s], sp[s], n_out, ex, stages + s * stage_bytes,
+                 bars + 8 * s);
   }
   const uint32_t salt = (uint32_t)__ldg(salt_p);
   const uint32_t add = ex ? 0u : salt;
@@ -529,23 +642,39 @@ decode_classes_kernel(Classes c, Walk w, const long long* __restrict__ salt_p,
   int s = 0;
   uint32_t parity = 0;
   for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    // the tile this stage takes next: thread 0 asks where its bytes lie
+    // now, so that the answer is in by the time it issues the copies
+    const int64_t next = t + (int64_t)WALK_STAGES * gridDim.x;
+    Tile nk = {};
+    Span nsp = {};
+    if (threadIdx.x == 0 && next < tiles) {
+      nk = walk_tile(c, w, next);
+      nsp = walk_span(c, nk);
+    }
     bar_wait(bars + 8 * s, parity);
     const Tile k = walk_tile(c, w, t);
     const bool whole = k.rows == w.rows;
     const uint8_t* st = walk_s + WALK_BAR_BYTES + s * stage_bytes;
-    if (k.mode == 16)
-      walk_gather<16>(st, k, whole, c.n16, salt, add, out, n_out);
+    if (k.mode == 16 && c.starts16)
+      walk_gather<16, true>(st, k, whole, c.n16, c.starts16, c.skip16, salt,
+                            add, out, n_out);
+    else if (k.mode == 16)
+      walk_gather<16, false>(st, k, whole, c.n16, c.starts16, c.skip16, salt,
+                             add, out, n_out);
+    else if (k.mode == 32 && c.starts32)
+      walk_gather<32, true>(st, k, whole, c.n32, c.starts32, c.skip32, salt,
+                            add, out, n_out);
     else if (k.mode == 32)
-      walk_gather<32>(st, k, whole, c.n32, salt, add, out, n_out);
+      walk_gather<32, false>(st, k, whole, c.n32, c.starts32, c.skip32, salt,
+                             add, out, n_out);
     else
       walk_zero(st, k, whole, c.n0, (int32_t)salt, ex, out, n_out);
     __syncthreads();  // every thread is done with the stage
-    const int64_t next = t + (int64_t)WALK_STAGES * gridDim.x;
     if (threadIdx.x == 0 && next < tiles) {
       // the stage's reads came through the generic proxy, its refill comes
       // through the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      walk_issue(c, w, next, n_out, ex, stages + s * stage_bytes,
+      walk_issue(c, w, nk, nsp, n_out, ex, stages + s * stage_bytes,
                  bars + 8 * s);
     }
     if (++s == WALK_STAGES) s = 0, parity ^= 1;
@@ -626,21 +755,30 @@ int dint_zero(const void* n, const void* salt, void* out, int64_t rows,
 
 // One launch for the three classes of an engine run, written into the one
 // (rows0 + rows16 + rows32, n_out) buffer `out`.  A class with 0 rows may
-// pass null pointers; at least one class has rows.  `exact` 0 keeps the raw
-// contract above, 1 leaves the salt of K2 and K3 out.
+// pass null pointers; at least one class has rows.  A gather class passes
+// null `starts` and `skip` 0 padded, its (rows + 1, 2) int32 start table and
+// skip (0 or 16) trimmed (see Classes; the wrapper has checked every row's
+// range against its n and the data).  `exact` 0 keeps the raw contract
+// above, 1 leaves the salt of K2 and K3 out.
 int dint_decode_classes(const void* n0, int64_t rows0, const void* vidx16,
-                        const void* tab16, const void* n16, int64_t rows16,
+                        const void* tab16, const void* n16,
+                        const void* starts16, int skip16, int64_t rows16,
                         const void* vidx32, const void* tab32, const void* n32,
-                        int64_t rows32, const void* salt, void* out, int n_out,
-                        int exact, void* stream) {
+                        const void* starts32, int skip32, int64_t rows32,
+                        const void* salt, void* out, int n_out, int exact,
+                        void* stream) {
   Classes c;
   c.n0 = (const int32_t*)n0;
   c.vidx16 = (const uint8_t*)vidx16;
   c.tab16 = (const uint32_t*)tab16;
   c.n16 = (const int32_t*)n16;
+  c.starts16 = (const int2*)starts16;
+  c.skip16 = skip16;
   c.vidx32 = (const uint8_t*)vidx32;
   c.tab32 = (const uint32_t*)tab32;
   c.n32 = (const int32_t*)n32;
+  c.starts32 = (const int2*)starts32;
+  c.skip32 = skip32;
   c.rows0 = rows0;
   c.rows16 = rows16;
   c.rows32 = rows32;

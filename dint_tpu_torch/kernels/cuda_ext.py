@@ -29,11 +29,13 @@ _SIGNATURES = {
         "dint_gather16": [_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
         # n, salt, out, rows, n_out, stream
         "dint_zero": [_P, _P, _P, ctypes.c_int64, ctypes.c_int, _P],
-        # n0, rows0, vidx16, tab16, n16, rows16, vidx32, tab32, n32, rows32,
-        # salt, out, n_out, exact, stream
-        "dint_decode_classes": [_P, ctypes.c_int64, _P, _P, _P, ctypes.c_int64,
-                                _P, _P, _P, ctypes.c_int64, _P, _P,
-                                ctypes.c_int, ctypes.c_int, _P],
+        # n0, rows0, vidx16, tab16, n16, starts16, skip16, rows16, vidx32,
+        # tab32, n32, starts32, skip32, rows32, salt, out, n_out, exact,
+        # stream
+        "dint_decode_classes": [_P, ctypes.c_int64,
+                                _P, _P, _P, _P, ctypes.c_int, ctypes.c_int64,
+                                _P, _P, _P, _P, ctypes.c_int, ctypes.c_int64,
+                                _P, _P, ctypes.c_int, ctypes.c_int, _P],
         # n_out, host int64[2] (resident blocks, most rows a tile)
         "dint_decode_classes_walk": [ctypes.c_int, _P],
         # blocks, stream

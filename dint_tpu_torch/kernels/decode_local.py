@@ -21,6 +21,10 @@ classes of a run with ONE launch (the same three bodies, a block picks
 its class), raw as the class kernels write it or exact (the salt of K2
 and K3 left out in the kernel); ``gather32``, ``gather16`` and ``zero``
 stay as entries of their own for the ablation and the kernel checks.
+The fused launch takes a u16 or i32 class as a padded (vidx, tab, n)
+triple or trimmed (``TrimmedClass``: each row's vidx lanes below n and
+the table entries its valid lanes read past the planner's zero region,
+the rows end to end); the engines keep theirs trimmed.
 
 Two engines run the class kernels.  ``ImageDecodeEngine`` decodes a
 whole stream's packed image and keeps the reference package's
@@ -47,7 +51,7 @@ import ctypes
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -543,20 +547,201 @@ def single_class_chain(vidx, tab, n, runs: int) -> torch.Tensor:
     return salt.reshape(())
 
 
+# ---------------------------------------------------------------------------
+# The trimmed form of a gather class
+# ---------------------------------------------------------------------------
+
+ZERO_ENTRIES = MAX_ENTRY_SIZE  # a planned row's leading zero region
+
+
+class TrimmedClass(NamedTuple):
+    """A u16 or i32 class as the fused launch reads it trimmed: row r
+    keeps its vidx lanes [0, n_r) and its table entries [skip, used_r),
+    ``used_r`` one past the highest index its valid lanes read, each part
+    rounded up to 16 bytes, the rows laid end to end, so that a tile's
+    bytes are one range of each tensor; a row with n = 0 keeps nothing.
+    ``skip`` is ``ZERO_ENTRIES`` where every row's leading zero region is
+    0 (a lane whose index falls in it reads 0), else 0.  ``n`` is the
+    padded triple's; ``starts[r]`` holds the first 16-byte word of row
+    r's vidx (column 0) and table (column 1), ``starts[rows]`` the ends.
+    ``trim_class`` makes one from a padded triple, ``untrim`` gives the
+    triple back."""
+
+    vidx: torch.Tensor  # (16 * V,) uint8
+    tab: torch.Tensor  # (4 * T,) int32 holding u32 bits
+    n: torch.Tensor  # (rows,) int32
+    starts: torch.Tensor  # (rows + 1, 2) int32
+    skip: int  # 0 or ZERO_ENTRIES
+
+    def head(self, rows: int) -> "TrimmedClass":
+        """The class's first ``rows`` rows: views of its tensors (the
+        ends are read back, so on the card a sync)."""
+        v, t = (int(x) for x in self.starts[rows].tolist())
+        return TrimmedClass(self.vidx[:16 * v], self.tab[:4 * t],
+                            self.n[:rows], self.starts[:rows + 1], self.skip)
+
+    def to(self, device) -> "TrimmedClass":
+        """The class with its tensors on ``device``."""
+        return TrimmedClass(*(t.to(device) for t in self[:4]), self.skip)
+
+
+def _trim_host(vidx: np.ndarray, tab: np.ndarray, n: np.ndarray):
+    """(vidx bytes, table words, starts, skip) of the trimmed form of a
+    padded class on the host: vidx (R, n_out) u8, tab (R, words) 32-bit,
+    n (R,)."""
+    rows, n_out = vidx.shape
+    words = tab.shape[1]
+    per = TABLE_CLS // words  # entries a word
+    tab = np.ascontiguousarray(tab).view(np.uint32)
+    nn = np.clip(n.astype(np.int64), 0, n_out)
+    lanes = np.arange(n_out)
+    valid = lanes[None, :] < nn[:, None]
+    used = np.where(nn > 0, np.where(valid, vidx, 0).max(axis=1, initial=0)
+                    .astype(np.int64) + 1, 0)
+    skip = ZERO_ENTRIES if not tab[:, :ZERO_ENTRIES // per].any() else 0
+    w0 = skip // per
+    tlen = -(-np.maximum(-(-used // per) - w0, 0) // 4)  # 16-byte words
+    vlen = -(-nn // 16)
+    vdata = vidx[lanes[None, :] < 16 * vlen[:, None]]
+    wpos = np.arange(words)[None, :] - w0
+    tdata = tab[(wpos >= 0) & (wpos < 4 * tlen[:, None])].view(np.int32)
+    starts = np.zeros((rows + 1, 2), np.int64)
+    starts[1:, 0] = np.cumsum(vlen)
+    starts[1:, 1] = np.cumsum(tlen)
+    if starts[-1].max(initial=0) >= 1 << 31:
+        raise ValueError("trim_class: the class outgrows an int32 start")
+    return vdata, tdata, starts.astype(np.int32), skip
+
+
+def trim_class(vidx, tab, n, device=None) -> TrimmedClass:
+    """The trimmed form of the padded class (vidx (R, n_out) uint8, tab
+    (R, 128 or 256) of u32 bits, n (R,) int32; numpy arrays or tensors),
+    built on the host and put on ``device`` (default: the tensors' own,
+    else the CPU)."""
+    if device is None:
+        device = n.device if isinstance(n, torch.Tensor) else "cpu"
+    vidx, tab, n = (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                    else np.asarray(a) for a in (vidx, tab, n))
+    if (vidx.dtype != np.uint8 or vidx.ndim != 2
+            or tab.shape not in ((vidx.shape[0], TABLE_CLS // 2),
+                                 (vidx.shape[0], TABLE_CLS))
+            or tab.dtype.itemsize != 4 or n.shape != (vidx.shape[0],)):
+        raise ValueError(f"trim_class: vidx (R, n_out) uint8, tab (R, 128 "
+                         f"or 256) of 32 bits and n (R,) wanted, got "
+                         f"{vidx.shape} {vidx.dtype}, {tab.shape} "
+                         f"{tab.dtype}, {n.shape}")
+    vdata, tdata, starts, skip = _trim_host(vidx, tab, n)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return TrimmedClass(up(vdata), up(tdata), up(n.astype(np.int32)),
+                        up(starts), skip)
+
+
+def untrim(cls: TrimmedClass, words: int, n_out: int = N_OUT):
+    """The padded (vidx, tab, n) of a trimmed class, on its device: the
+    lanes and table words it left out are 0 (the zero region's entries
+    are; the rest no valid lane reads)."""
+    dev = cls.n.device
+    rows = cls.n.shape[0]
+    st = cls.starts.to(torch.int64)
+    per = TABLE_CLS // words
+    vidx = torch.zeros((rows, n_out), dtype=torch.uint8, device=dev)
+    tab = torch.zeros((rows, words), dtype=torch.int32, device=dev)
+    j = torch.arange(n_out, device=dev)
+    ok = j[None, :] < 16 * (st[1:, 0] - st[:-1, 0])[:, None]
+    vidx[ok] = cls.vidx[(16 * st[:-1, 0, None] + j)[ok]]
+    w = torch.arange(words, device=dev) - cls.skip // per
+    ok = (w >= 0) & (w < 4 * (st[1:, 1] - st[:-1, 1])[:, None])
+    tab[ok] = cls.tab[(4 * st[:-1, 1, None] + w)[ok]]
+    return vidx, tab, cls.n
+
+
+def _check_trimmed_shapes(name, label, cls, dev):
+    """A trimmed class's dtypes, shapes and devices, its start table's
+    rows against its n: what can be checked without reading its data."""
+    v, t, n, st, skip = cls
+    if (v.dtype != torch.uint8 or v.dim() != 1 or v.numel() % 16
+            or t.dtype != torch.int32 or t.dim() != 1 or t.numel() % 4):
+        raise ValueError(f"{name}: {label} class: a trimmed vidx must be "
+                         f"uint8 and tab int32, each flat and of whole "
+                         f"16-byte words, got {tuple(v.shape)} {v.dtype}, "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if n.dtype != torch.int32 or n.dim() != 1:
+        raise ValueError(f"{name}: {label} class: n must be (rows,) int32, "
+                         f"got {tuple(n.shape)} {n.dtype}")
+    if st.dtype != torch.int32 or tuple(st.shape) != (n.shape[0] + 1, 2):
+        raise ValueError(f"{name}: {label} class: n has {n.shape[0]} rows, "
+                         f"so the start table must be ({n.shape[0] + 1}, 2) "
+                         f"int32, got {tuple(st.shape)} {st.dtype}")
+    if skip not in (0, ZERO_ENTRIES):
+        raise ValueError(f"{name}: {label} class: skip must be 0 or "
+                         f"{ZERO_ENTRIES}, got {skip}")
+    if not (v.device == t.device == n.device == st.device == dev):
+        raise ValueError(f"{name}: {label} class: tensors on different "
+                         f"devices")
+
+
+def check_trimmed(name, label, cls, words, n_out) -> None:
+    """Every row of a trimmed class against its n and the data (read back
+    to the host, so on the card a sync): the starts rising from 0 or
+    more to ends inside vidx and tab, each row's vidx range covering its
+    lanes below n and at most n_out of them, its table range at most the
+    row's table past the skipped entries, and every index its valid
+    lanes read below the entries it keeps.  Raises ValueError naming the
+    class and the first bad row."""
+    v, t, n, st, skip = cls
+    n = n.cpu().numpy().astype(np.int64)
+    st = st.cpu().numpy().astype(np.int64)
+    per = TABLE_CLS // words
+    vlen, tlen = np.diff(st[:, 0]), np.diff(st[:, 1])
+    nn = np.clip(n, 0, n_out)
+    if (st[0] < 0).any():
+        raise ValueError(f"{name}: {label} class: starts below 0")
+    faults = [
+        ("a start table that falls", (vlen < 0) | (tlen < 0)),
+        ("a vidx range past the data", st[1:, 0] * 16 > v.numel()),
+        ("a table range past the data", st[1:, 1] * 4 > t.numel()),
+        ("a vidx range short of n", vlen * 16 < nn),
+        ("a vidx range of more than n_out lanes", vlen * 16 > n_out),
+        ("a table range past the row's table",
+         tlen * 4 > words - skip // per),
+    ]
+    for what, bad in faults:
+        if bad.any():
+            r = int(np.flatnonzero(bad)[0])
+            raise ValueError(f"{name}: {label} class: row {r}: {what} "
+                             f"(n {n[r]}, starts {st[r].tolist()} .. "
+                             f"{st[r + 1].tolist()})")
+    k = nn.astype(np.int64)
+    rows = np.repeat(np.arange(len(n)), k)
+    lane = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    ix = v.cpu().numpy()[16 * st[rows, 0] + lane].astype(np.int64)
+    bad = ix >= skip + 4 * per * tlen[rows]
+    if bad.any():
+        r = int(rows[np.flatnonzero(bad)[0]])
+        raise ValueError(f"{name}: {label} class: row {r}: a valid lane "
+                         f"reads a table entry the row does not keep")
+
+
 def decode_classes_plain(n0, cls16, cls32, salt, exact: bool = False,
                          n_out: int = N_OUT):
     """The fused class launch in plain PyTorch: the three twins written
-    into one buffer in engine order (zero, u16, i32).  ``exact`` leaves
-    the salt of K2 and K3 out (their twins run with salt 0; K1's output
-    does not depend on its salt)."""
+    into one buffer in engine order (zero, u16, i32), a trimmed class
+    read through ``untrim``.  ``exact`` leaves the salt of K2 and K3 out
+    (their twins run with salt 0; K1's output does not depend on its
+    salt)."""
     s = torch.zeros_like(salt) if exact else salt
     parts = []
     if n0 is not None and n0.shape[0]:
         parts.append(zero_plain(n0, s, n_out))
-    if cls16 is not None and cls16[2].shape[0]:
-        parts.append(gather16_plain(*cls16, s))
-    if cls32 is not None and cls32[2].shape[0]:
-        parts.append(gather32_plain(*cls32, salt))
+    for words, plain, cls, sl in ((TABLE_CLS // 2, gather16_plain, cls16, s),
+                                  (TABLE_CLS, gather32_plain, cls32, salt)):
+        if cls is not None and cls[2].shape[0]:
+            if isinstance(cls, TrimmedClass):
+                cls = untrim(cls, words, n_out)
+            parts.append(plain(*cls, sl))
     if not parts:
         return torch.empty((0, n_out), dtype=torch.int32, device=salt.device)
     return torch.cat(parts)
@@ -582,21 +767,28 @@ def _walk_shape(dev, n_out):
 
 
 def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
-                   n_out: int = N_OUT, out=None):
+                   n_out: int = N_OUT, out=None, check: bool = True):
     """One engine run over the three width classes: ``n0`` (R0,) int32 of
-    the zero class, ``cls16`` and ``cls32`` the (vidx, tab, n) of the u16
-    and i32 classes; a class may be None or have no rows.  Returns the
-    (R0 + R16 + R32, n_out) int32 buffer in engine order (zero, u16,
-    i32).  Raw (``exact`` False) is the class kernels' contract: K2 and
-    K3 leave ``+ salt`` on valid lanes; ``exact`` True leaves it out.  On
-    a CUDA device this is ONE launch of ``dint_decode_classes`` (or the
-    call raises); on the CPU, ``decode_classes_plain``.  The call is the
-    span ``decode.launch``, and on the card the library call inside it
-    the span ``decode.enqueue``: a launch that waits for room in the
+    the zero class, ``cls16`` and ``cls32`` the u16 and i32 classes,
+    each a padded (vidx, tab, n) triple or a ``TrimmedClass``; a class
+    may be None or have no rows.  Returns the (R0 + R16 + R32, n_out)
+    int32 buffer in engine order (zero, u16, i32), the same for either
+    form of a class.  Raw (``exact`` False) is the class kernels'
+    contract: K2 and K3 leave ``+ salt`` on valid lanes; ``exact`` True
+    leaves it out.  Every call checks each triple's dtypes, shapes and
+    rows; ``check`` also holds a trimmed class's dtypes, shapes and start
+    table to its n and every row to its n and data (``check_trimmed``: a
+    sync on the card).  An engine checks the classes it builds once, at
+    upload, and passes ``check`` False: its runs check no trimmed class
+    again.  On a CUDA device this is ONE launch of ``dint_decode_classes``
+    (or the call raises); on the CPU, ``decode_classes_plain``.  The call
+    is the span ``decode.launch``, and on the card the library call inside
+    it the span ``decode.enqueue``: a launch that waits for room in the
     card's launch queue waits there, so the launch's self time is the
-    wrapper's own host cost.  A launch of more row tiles than the card
-    holds blocks at once walks (its blocks take several tiles each) and
-    counts in ``decode_classes.walked``."""
+    wrapper's own host cost.  A launch of more row tiles than the card holds blocks
+    at once walks (its blocks take several tiles each) and counts in
+    ``decode_classes.walked``; one that reads a class trimmed counts in
+    ``decode_classes.trimmed``."""
     with trace.span("decode.launch"):
         name = "decode_classes"
         dev = salt.device
@@ -609,18 +801,31 @@ def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
         classes = []
         if n0 is not None and n0.shape[0]:
             classes.append(("K3_zero", (n0,)))
-        for body, words, cls in (("K2_gather16", TABLE_CLS // 2, cls16),
-                                 ("K1_gather32", TABLE_CLS, cls32)):
+        trimmed = {}
+        for body, label, words, cls in (
+                ("K2_gather16", "u16", TABLE_CLS // 2, cls16),
+                ("K1_gather32", "i32", TABLE_CLS, cls32)):
             if cls is None or cls[2].shape[0] == 0:
+                continue
+            if isinstance(cls, TrimmedClass):
+                if check:
+                    _check_trimmed_shapes(name, label, cls, dev)
+                    check_trimmed(name, label, cls, words, n_out)
+                trimmed[body] = cls.skip
+                classes.append((body, cls[:4]))
                 continue
             _check_gather(name, words, *cls)
             if cls[0].shape[1] != n_out:
                 raise ValueError(f"{name}: vidx has {cls[0].shape[1]} lanes "
                                  f"a row, n_out is {n_out}")
-            classes.append((body, tuple(cls)))
+            if cls[2].shape[0] != cls[0].shape[0]:
+                raise ValueError(f"{name}: {label} class: n has "
+                                 f"{cls[2].shape[0]} rows, vidx and tab "
+                                 f"{cls[0].shape[0]}")
+            classes.append((body, tuple(cls) + (None,)))
         rows = {"K3_zero": 0, "K2_gather16": 0, "K1_gather32": 0}
         for body, tensors in classes:
-            n = tensors[-1]
+            n = tensors[0] if body == "K3_zero" else tensors[2]
             if n.dtype != torch.int32 or n.dim() != 1 or n.device != dev:
                 raise ValueError(f"{name}: n must be (rows,) int32 on {dev}, "
                                  f"got {tuple(n.shape)} {n.dtype} on "
@@ -641,15 +846,20 @@ def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
             raise ValueError(f"{name}: unsupported device {dev}")
         if total == 0:
             return out
-        _check_cuda(name, salt, out, *(t for _, ts in classes for t in ts))
-        ptr = {body: [t.data_ptr() for t in ts] for body, ts in classes}
+        _check_cuda(name, salt, out, *(
+            t for body, ts in classes if check or body not in trimmed
+            for t in ts if t is not None))
+        ptr = {body: [None if t is None else t.data_ptr() for t in ts]
+               for body, ts in classes}
         stream = torch.cuda.current_stream(dev).cuda_stream
         launch = cuda_ext.lib(_LIB).dint_decode_classes
         with trace.span("decode.enqueue"):
             rc = launch(
                 *ptr.get("K3_zero", [None]), rows["K3_zero"],
-                *ptr.get("K2_gather16", [None] * 3), rows["K2_gather16"],
-                *ptr.get("K1_gather32", [None] * 3), rows["K1_gather32"],
+                *ptr.get("K2_gather16", [None] * 4),
+                trimmed.get("K2_gather16", 0), rows["K2_gather16"],
+                *ptr.get("K1_gather32", [None] * 4),
+                trimmed.get("K1_gather32", 0), rows["K1_gather32"],
                 salt.data_ptr(), out.data_ptr(), n_out, int(bool(exact)),
                 stream,
             )
@@ -657,6 +867,8 @@ def decode_classes(n0, cls16, cls32, salt, exact: bool = False,
         decode_classes.launches += 1
         for body, _ in classes:
             decode_classes.bodies[body] += 1
+        if trimmed:
+            decode_classes.trimmed += 1
         resident, tr = _walk_shape(dev, n_out)
         if (-(-rows["K3_zero"] // tr) - (-rows["K2_gather16"] // tr)
                 - (-rows["K1_gather32"] // tr)) > resident:
@@ -672,6 +884,8 @@ decode_classes.launches = 0
 decode_classes.bodies = {"K1_gather32": 0, "K2_gather16": 0, "K3_zero": 0}
 # fused launches whose tiles outnumbered the grid, so that blocks walked
 decode_classes.walked = 0
+# fused launches that read a class in the trimmed form
+decode_classes.trimmed = 0
 
 KERNELS = {"K1_gather32": gather32, "K2_gather16": gather16, "K3_zero": zero,
            "K123_decode_classes": decode_classes}
@@ -683,6 +897,7 @@ def reset_launch_counts() -> None:
     for k in decode_classes.bodies:
         decode_classes.bodies[k] = 0
     decode_classes.walked = 0
+    decode_classes.trimmed = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -1210,9 +1425,8 @@ class _Class:
     base: int  # first engine row of the class
     rows: int  # padded rows
     valid: int  # real ints of the class
-    vidx: torch.Tensor = None  # (rows, N_OUT) uint8
-    tab: torch.Tensor = None  # (rows, words) int32
     n: torch.Tensor = None  # (rows,) int32
+    data: TrimmedClass = None  # the u16 or i32 class, trimmed
 
 
 def _default_row_tile(rows: int) -> int:
@@ -1223,19 +1437,18 @@ class _ClassEngine:
     """Uploads the width classes (class-major engine rows: zero, u16,
     i32, each padded to the row tile) and runs the class kernels' bodies
     over them, one fused launch a run (``decode_classes``) on a CUDA
-    device, the plain twins on the CPU."""
+    device, the plain twins on the CPU.  The u16 and i32 classes live on
+    the device trimmed (``TrimmedClass``): no padded vidx or table is
+    kept there."""
 
     def _upload(self, parts, row_tile: int) -> None:
         """``parts``: (mode, vidx (Rc, N_OUT) u8, tab (Rc, words) u32,
         n (Rc,) i32) per class in engine order; vidx and tab are None
-        for the zero class.  The padding and copies are the span
-        ``load.upload`` (the copies are not waited for)."""
-
-        def pad_rows(a, rows):
-            if a.shape[0] != rows:
-                ext = np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)
-                a = np.concatenate([a, ext])
-            return a
+        for the zero class.  Each class's n is padded to the row tile
+        (the padding rows have n = 0, so a trimmed class gives them no
+        bytes), the u16 and i32 classes trimmed on the host; the
+        trimming and the copies are the span ``load.upload`` (the copies
+        are not waited for)."""
 
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -1250,12 +1463,20 @@ class _ClassEngine:
                 c = _Class(mode, base, padded,
                            int(nn.astype(np.int64).sum()))
                 if padded:
-                    c.n = up(pad_rows(np.asarray(nn, np.int32), padded))
+                    n = np.zeros(padded, np.int32)
+                    n[:Rc] = nn
+                    c.n = up(n)
                     if mode:
-                        c.vidx = up(pad_rows(np.asarray(vidx, np.uint8),
-                                             padded))
-                        c.tab = up(pad_rows(np.asarray(tab, np.uint32),
-                                            padded).view(np.int32))
+                        vdata, tdata, starts, skip = _trim_host(
+                            np.asarray(vidx, np.uint8),
+                            np.asarray(tab, np.uint32), n[:Rc])
+                        starts = np.concatenate(
+                            [starts, np.repeat(starts[-1:], padded - Rc, 0)])
+                        c.data = TrimmedClass(up(vdata), up(tdata), c.n,
+                                              up(starts), skip)
+                        _check_trimmed_shapes(
+                            "upload", {16: "u16", 32: "i32"}[mode], c.data,
+                            c.n.device)
                 self._classes.append(c)
                 base += padded
             self.rows = base
@@ -1263,17 +1484,39 @@ class _ClassEngine:
             # the fused launch writes the classes in this order
             assert [c.mode for c in self._classes] == [0, 16, 32]
 
+    def launch_args(self):
+        """(n0, cls16, cls32) of one run as ``decode_classes`` takes
+        them; a class of no rows is None."""
+        c0, c16, c32 = self._classes
+        return (c0.n, c16.data, c32.data)
+
+    def padded(self, mode: int):
+        """The padded (vidx, tab, n) of the u16 (16) or i32 (32) class,
+        made on the device from its trimmed form (``untrim``), for the
+        stand-alone class kernels; None where the class has no rows."""
+        c = next(c for c in self._classes if c.mode == mode)
+        return untrim(c.data, TABLE_CLS // (2 if mode == 16 else 1),
+                      N_OUT) if c.rows else None
+
+    def card_bytes(self) -> int:
+        """Bytes of the image the engine keeps on its device: every
+        class's n, and the u16 and i32 classes' trimmed vidx, tables and
+        start tables."""
+        held = []
+        for c in self._classes:
+            held.append(c.n)
+            if c.data is not None:
+                held += [c.data.vidx, c.data.tab, c.data.starts]
+        return sum(t.numel() * t.element_size() for t in held
+                   if t is not None)
+
     def _run(self, salt: torch.Tensor, exact: bool = False) -> torch.Tensor:
         """Outputs of every class for one run, in one (rows, N_OUT) int32
         buffer in engine row order, from one fused launch: raw (K2 and K3
-        leave ``+ salt`` on valid lanes), or exact."""
-        c0, c16, c32 = self._classes
-        return decode_classes(
-            c0.n,
-            (c16.vidx, c16.tab, c16.n) if c16.rows else None,
-            (c32.vidx, c32.tab, c32.n) if c32.rows else None,
-            salt, exact, N_OUT,
-        )
+        leave ``+ salt`` on valid lanes), or exact.  The classes were
+        built here and are not checked again."""
+        return decode_classes(*self.launch_args(), salt, exact, N_OUT,
+                              check=False)
 
     def _salt(self, value: int) -> torch.Tensor:
         return torch.full((1,), value & _MASK, dtype=torch.int64,

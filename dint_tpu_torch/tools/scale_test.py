@@ -367,17 +367,14 @@ def time_launch(fn, iters: int = LAUNCH_ITERS) -> float:
 def fused_launch(dec, rate: float) -> dict:
     """The gather leg's one launch a run (the fused K1-K3 class launch)
     at this stream's size: its rows by class, the bytes it must move
-    (every class tensor read once, the output written once) and their
-    time at ``rate``, and its time alone; the same for the zero class
-    alone in the launch (no u16 or i32 rows)."""
+    (the engine's image on the card read once, trimmed, the output
+    written once) and their time at ``rate``, and its time alone; the
+    same for the zero class alone in the launch (no u16 or i32 rows)."""
     from ..kernels import decode_local as dl
 
     eng, img = dec.engine, dec.engine.image
     salt = torch.ones(1, dtype=torch.int64, device=eng.device)
-    nbytes = 8 + eng.rows * dl.N_OUT * 4
-    for c in eng._classes:
-        nbytes += sum(t.numel() * t.element_size()
-                      for t in (c.vidx, c.tab, c.n) if t is not None)
+    nbytes = 8 + eng.rows * dl.N_OUT * 4 + eng.card_bytes()
     rec = {"rows": {"zero": int(img.n0.shape[0]),
                     "u16": int(img.n16.shape[0]),
                     "i32": int(img.n32.shape[0])},

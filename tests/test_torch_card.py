@@ -30,9 +30,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (X2_REFUSED, X3_REFUSED, make_data, x2_edge_arena,
-                        x2_refused_specs, x3_args, x3_edge_pass, x3_edge_tiles,
-                        x3_refused_case, x4_edge_classes)
+from chip_smoke import (X2_REFUSED, X3_REFUSED, fused_refused_cases,
+                        make_data, x2_edge_arena, x2_refused_specs, x3_args,
+                        x3_edge_pass, x3_edge_tiles, x3_refused_case,
+                        x4_edge_classes)
 from dint_tpu_torch.codecs import ef, ef_device
 from dint_tpu_torch.config import BLOCK_SIZE
 from dint_tpu_torch.kernels import decode_local as dl
@@ -108,8 +109,8 @@ def test_entry_fn_on_the_card(card):
     out = fn(*args)
     torch.cuda.synchronize()
     assert dl.decode_classes.launches == before + 1
-    cpu = lambda x: (None if x is None else tuple(t.cpu() for t in x)
-                     if isinstance(x, tuple) else x.cpu())
+    cpu = lambda x: (None if x is None else x.to("cpu")
+                     if isinstance(x, dl.TrimmedClass) else x.cpu())
     want = dl.decode_classes_plain(*(cpu(a) for a in args[:3]),
                                    args[3].cpu(), exact=True)
     assert torch.equal(out.cpu(), want)
@@ -185,9 +186,14 @@ def test_fused_launch_equals_plain_at_every_width(card, n_out):
     every class, with empty classes and with the zero class alone, at row
     counts that are no multiple of a tile, and on mixes of tens of
     thousands of rows whose blocks walk many tiles: equal to its plain
-    version, the row after its output untouched, and counted in
-    ``decode_classes.walked`` exactly where its tiles outnumber the
-    card's resident blocks."""
+    version, the row after its output untouched, one launch a call,
+    counted in ``decode_classes.walked`` exactly where its tiles
+    outnumber the card's resident blocks; the same with the u16 and i32
+    classes trimmed (``trim_class``; their random tables have no zero
+    region, so also with one, skip 16), counted in
+    ``decode_classes.trimmed``.  The classes at odds that the CPU
+    refuses (``chip_smoke.fused_refused_cases``) are refused on the card
+    too, with no launch."""
     rng = np.random.default_rng(n_out)
 
     def cls(rows, words):
@@ -209,11 +215,24 @@ def test_fused_launch_equals_plain_at_every_width(card, n_out):
                cls(6_005, 256)),
               (zero_class(1_003, n_out, 7).to(card), cls(3_001, 128),
                cls(30_007, 256))]
+    def zeroed(c):
+        t = c[1].clone()
+        t[:, : dl.ZERO_ENTRIES * t.shape[1] // 256] = 0
+        return c[0], t, c[2]
+
+    def trim(c):
+        return None if c is None else dl.trim_class(*c)
+
+    cases += [(n0_, trim(a), trim(b)) for n0_, a, b in cases
+              if a is not None or b is not None]
+    cases.append((n0, trim(zeroed(c16)), trim(zeroed(c32))))
+    assert cases[-1][1].skip == cases[-1][2].skip == dl.ZERO_ENTRIES
     resident, tile_rows = dl._walk_shape(card, n_out)
     for n0_, c16_, c32_ in cases:
         rows = sum(0 if c is None else c.shape[0]
                    for c in (n0_, c16_ and c16_[2], c32_ and c32_[2]))
         walks = rows > 10_000
+        trimmed = any(isinstance(c, dl.TrimmedClass) for c in (c16_, c32_))
         tiles = sum(-(-c.shape[0] // tile_rows)
                     for c in (n0_, c16_ and c16_[2], c32_ and c32_[2])
                     if c is not None)
@@ -222,15 +241,29 @@ def test_fused_launch_equals_plain_at_every_width(card, n_out):
             salt = torch.tensor([s], dtype=torch.int64, device=card)
             for exact in (False, True):
                 out, buf = guarded(rows, n_out, card)
-                before = dl.decode_classes.walked
+                before = (dl.decode_classes.launches, dl.decode_classes.walked,
+                          dl.decode_classes.trimmed)
                 dl.decode_classes(n0_, c16_, c32_, salt, exact, n_out,
                                   out=out)
-                assert dl.decode_classes.walked == before + walks, rows
+                assert (dl.decode_classes.launches, dl.decode_classes.walked,
+                        dl.decode_classes.trimmed) == (
+                    before[0] + 1, before[1] + walks,
+                    before[2] + trimmed), rows
                 torch.cuda.synchronize()
                 want = dl.decode_classes_plain(n0_, c16_, c32_, salt, exact,
                                                n_out)
                 assert torch.equal(out, want), (rows, s, exact)
                 assert (buf[rows] == GUARD).all(), (rows, s, exact)
+    if n_out != dl.N_OUT:
+        return
+    salt = torch.tensor([5], dtype=torch.int64, device=card)
+    for label, args in fused_refused_cases(card):
+        which = "u16" if args[1] is not None else "i32"
+        before = dl.decode_classes.launches
+        with pytest.raises(ValueError, match=f"decode_classes: {which} "
+                                             f"class"):
+            dl.decode_classes(*args, salt)
+        assert dl.decode_classes.launches == before, label
 
 
 @pytest.mark.cuda

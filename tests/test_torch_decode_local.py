@@ -351,9 +351,9 @@ def _decode_by_passes(eng, salt):
         if c.mode == 0:
             t_dl.zero(c.n, s, N_OUT, out=o)
         elif c.mode == 16:
-            t_dl.gather16(c.vidx, c.tab, c.n, s, out=o)
+            t_dl.gather16(*eng.padded(16), s, out=o)
         else:
-            t_dl.gather32(c.vidx, c.tab, c.n, s, out=o)
+            t_dl.gather32(*eng.padded(32), s, out=o)
         if c.mode != 32:
             u = (o.to(torch.int64) - s) & MASK
             o.copy_(t_dl._to_i32(torch.where(t_dl._valid(c.n, N_OUT), u, 0)))

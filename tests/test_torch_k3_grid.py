@@ -162,20 +162,31 @@ def walk_tile(rows, tr, t):
 
 
 def stage_layout(n_out):
-    """(vidx, table, n) byte offsets of a stage, and its size: room for
-    WALK_ROWS rows of the i32 class, whatever the tile's rows."""
+    """(vidx, table, n, starts) byte offsets of a stage, and its size:
+    room for WALK_ROWS rows of the i32 class, whatever the tile's rows,
+    and a trimmed tile's row starts."""
     tab, n = WALK_ROWS * n_out, WALK_ROWS * (n_out + TABLE_CLS * 4)
-    return 0, tab, n, n + WALK_ROWS * 4
+    return 0, tab, n, n + WALK_ROWS * 4, n + WALK_ROWS * 12
 
 
-def walk_issue(tile, tr, n_out, exact):
+def walk_issue(tile, tr, n_out, exact, cls=None):
     """The bulk copies that start a tile's loads, each (tensor name, byte
     offset in it, bytes, byte offset in the stage), and the bytes the
-    stage's mbarrier is told to expect."""
+    stage's mbarrier is told to expect.  A trimmed class (``cls`` holds
+    its ``starts``) copies the range its tile's rows keep of vidx and
+    table, none where they keep none, and a whole tile's starts."""
     mode, rows, row0, _ = tile
-    _, tab_off, n_off, _ = stage_layout(n_out)
+    _, tab_off, n_off, st_off, _ = stage_layout(n_out)
+    st = None if cls is None else cls.get(f"starts{mode}")
     copies = []
-    if mode:
+    if mode and st is not None:
+        (v0, t0), (v1, t1) = st[row0], st[row0 + rows]
+        copies += [c for c in ((f"vidx{mode}", 16 * v0, 16 * (v1 - v0), 0),
+                               (f"tab{mode}", 16 * t0, 16 * (t1 - t0),
+                                tab_off)) if c[2]]
+        if rows == tr:
+            copies.append((f"starts{mode}", row0 * 8, tr * 8, st_off))
+    elif mode:
         words = WORDS[mode]
         copies += [(f"vidx{mode}", row0 * n_out, rows * n_out, 0),
                    (f"tab{mode}", row0 * words * 4, rows * words * 4, tab_off)]
@@ -198,8 +209,9 @@ def walk_mirror(cls, rows, n_out, resident, salt, exact):
     grid = min(tiles, resident)
     total = sum(rows)
     per_row, row_shift = n_out // 4, (n_out // 4).bit_length() - 1
-    _, tab_off, n_off, stage_bytes = stage_layout(n_out)
-    raw = {k: v.view(np.uint8).reshape(-1) for k, v in cls.items()}
+    _, tab_off, n_off, st_off, stage_bytes = stage_layout(n_out)
+    raw = {k: v.view(np.uint8).reshape(-1) for k, v in cls.items()
+           if isinstance(v, np.ndarray)}
     out = np.full((total, n_out), -7, np.int64)
     writes = np.zeros((total, n_out), np.int64)
     owner = np.full((total, n_out), -1, np.int64)
@@ -211,7 +223,7 @@ def walk_mirror(cls, rows, n_out, resident, salt, exact):
 
         def issue(t, s):
             tile = walk_tile(rows, tr, t)
-            copies, expect = walk_issue(tile, tr, n_out, exact)
+            copies, expect = walk_issue(tile, tr, n_out, exact, cls)
             for name, src, nbytes, dst in copies:
                 assert nbytes % 16 == 0 and src % 16 == 0 and dst % 16 == 0
                 assert src + nbytes <= raw[name].size, (name, tile)
@@ -243,15 +255,31 @@ def walk_mirror(cls, rows, n_out, resident, salt, exact):
             if mode == 0:
                 val = np.full(lane.shape, salt, np.int64)
             else:
-                ix = ring[s, : trows * n_out].reshape(trows, n_out)[
-                    lr[:, None], lane].astype(np.int64)
-                tab = ring[s, tab_off : tab_off + trows * WORDS[mode] * 4
-                           ].view(np.uint32).reshape(trows, WORDS[mode])
+                st = cls.get(f"starts{mode}")
+                skip = cls.get(f"skip{mode}", 0)
+                if st is None:  # padded: row lr at lr * n_out, lr * words
+                    vo, to = lr * n_out, lr * WORDS[mode]
+                else:  # trimmed: at its starts less the first row's
+                    rs = (ring[s, st_off : st_off + 8 * tr].view(np.int32)
+                          .reshape(tr, 2) if trows == tr
+                          else st[row0 : row0 + trows]).astype(np.int64)
+                    vo = 16 * (rs[lr, 0] - rs[0, 0])
+                    to = 4 * (rs[lr, 1] - rs[0, 1])
+                at = vo[:, None] + lane  # the uchar4 each thread reads
+                assert (at < tr * n_out).all()
+                ix = ring[s, at].astype(np.int64)
+                tab = ring[s, tab_off:n_off].view(np.uint32)
+                e = ix - skip  # the entry in the stage's table of the row
+                word = to[:, None] + (e if mode == 32 else e >> 1)
+                read = valid & (e >= 0)
+                assert (word[read] < tab.size).all()
+                w = tab[np.where(read, word, 0)].astype(np.int64)
                 if mode == 32:
-                    val = tab[lr[:, None], ix].astype(np.int64)
+                    val = np.where(e >= 0, w, 0)
                 else:
-                    w = tab[lr[:, None], ix >> 1].astype(np.int64)
-                    val = u32(np.where(ix & 1, w >> 16, w) & 0xFFFF) + add
+                    val = np.where(e >= 0, np.where(e & 1, w >> 16, w)
+                                   & 0xFFFF, 0)
+                    val = u32(val) + add
             rr = out0 + lr[:, None] + 0 * lane
             out[rr, lane] = np.where(valid, u32(val), 0)
             np.add.at(writes, (rr, lane), 1)
@@ -312,6 +340,7 @@ def test_walk_shape_read_from_the_source():
     assert WALK_THREADS % 32 == 0
     for n_out in N_OUTS:
         assert all(off % 16 == 0 for off in stage_layout(n_out))
+        assert stage_layout(n_out)[-1] <= 232448 // WALK_STAGES
 
 
 @pytest.mark.parametrize("rows, resident, tile_rows, walks", [
